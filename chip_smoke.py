@@ -32,6 +32,7 @@ import collections
 import contextlib
 import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -167,6 +168,8 @@ def check_kernel(kind, shape, cout, dtype_name, dev, seed, cycles_per_ms):
 
         flops = 2.0 * b * h * w * 9 * c * cout
         nbytes = (x.numel() + wt.numel() + b * h * w * cout + cout) * item
+        p = conv_mod.plan_conv3x3(b, h, w, c, cout, dtype)
+        plan = dict(variant=p.variant, bm=p.bm, bn=p.bn, stages=p.stages, splits=p.splits)
     else:
         up = kind == "fir_up2x"
         taps = (0.25, 0.75, 0.75, 0.25) if up else (0.125, 0.375, 0.375, 0.125)
@@ -190,6 +193,7 @@ def check_kernel(kind, shape, cout, dtype_name, dev, seed, cycles_per_ms):
                 return F.conv2d(x_lib, w_lib, stride=2, padding=1, groups=c)
 
         n_out = kern().numel()
+        plan = None
         flops = (12.0 if up else 40.0) * n_out  # the kernel's multiply-adds x 2
         nbytes = (x.numel() + n_out) * item
     got, want, lib = kern(), plain(), library()
@@ -199,15 +203,36 @@ def check_kernel(kind, shape, cout, dtype_name, dev, seed, cycles_per_ms):
     lib_err = (got.float() - lib.permute(0, 2, 3, 1).float()).abs().max().item()
     peak = PEAK_FLOPS["float32"] if kind != "conv3x3" else PEAK_FLOPS[dtype_name]
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    ms, library_ms = time_ms(kern, cycles_per_ms), time_ms(library, cycles_per_ms)
     return dict(
-        kernel=kind, shape=list(shape), cout=cout, dtype=dtype_name,
+        kernel=kind, shape=list(shape), cout=cout, dtype=dtype_name, plan=plan,
         max_abs_err=err, tol=TOL[dtype_name] * scale, ok=err <= TOL[dtype_name] * scale,
         library_abs_err=lib_err,
-        ms=time_ms(kern, cycles_per_ms), plain_ms=time_ms(plain, cycles_per_ms),
-        library_ms=time_ms(library, cycles_per_ms),
+        ms=ms, plain_ms=time_ms(plain, cycles_per_ms), library_ms=library_ms,
+        tflops=flops / ms / 1e9, ms_per_library_ms=ms / library_ms,
         bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
         ops_ms=t_ops, bytes_ms=t_bytes,
     )
+
+
+def ptxas_lines(text):
+    """nvcc's -Xptxas -v report, one instantiation at a time: its kernel (the
+    mangled template arguments shortened) beside its register and spill lines."""
+    entry = "?"
+    for line in text.splitlines():
+        found = re.search(r"entry function '[^']*?\d((?:conv3x3|fir)\w*?(?:kernel|reduce))(\w*)'", line)
+        if found:
+            args = found.group(2)
+            entry = found.group(1) + (args[:args.find("Ev")] if args.startswith("I") else "")
+        elif "registers" in line or "spill" in line:
+            yield f"{entry}: {line.strip()}"
+
+
+def plan_text(plan):
+    if plan is None:
+        return ""
+    return (f" plan {plan['variant']} {plan['bm']}x{plan['bn']} stages {plan['stages']} "
+            f"S {plan['splits']}")
 
 
 def main() -> int:
@@ -242,9 +267,8 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     log(f"[build] {report['build_s']:.1f} s for {', '.join(_build.KERNEL_SOURCES)}")
     for name, text in ptxas.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for line in ptxas_lines(text):
+            log(f"[build] {name}: {line}")
 
     # 2. shapes of one flagship score evaluation
     flagship = DiffSepModel(device=dev, seed=0)
@@ -272,9 +296,11 @@ def main() -> int:
             r = check_kernel(k, shape, cout, dtype_name, dev, i, cycles_per_ms)
             r["launches_per_eval"] = cnt
             results.append(r)
-            log(f"[kernel] {k} {shape}->{cout} {dtype_name} x{cnt}: err {r['max_abs_err']:.3g} "
-                f"(tol {r['tol']:.3g}) ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
-                f"lib {r['library_ms']:.4f} bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
+            log(f"[kernel] {k} {shape}->{cout} {dtype_name} x{cnt}:{plan_text(r['plan'])} "
+                f"err {r['max_abs_err']:.3g} (tol {r['tol']:.3g}) ms {r['ms']:.4f} "
+                f"plain {r['plain_ms']:.4f} lib {r['library_ms']:.4f} "
+                f"ms/lib {r['ms_per_library_ms']:.3g} {r['tflops']:.1f} TFLOP/s "
+                f"bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
     report["kernel_checks"] = results
     bad = [r for r in results if not r["ok"]]
     assert not bad, f"kernel mismatches: {bad}"

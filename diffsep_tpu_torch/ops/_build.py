@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C entry point. It is compiled with
 ``nvcc`` for Hopper (sm_90a) into ``build/kernels/<name>-<hash>.so`` beside
 the package at first use, and loaded with ctypes; the hash covers the
-source and the flags, so an edited source is rebuilt. ``build_all`` starts
+source, the ``csrc`` headers it includes and the flags, so an edit to any
+of them is rebuilt. ``build_all`` starts
 one ``nvcc`` per source at once.
 
 Every wrapper that launches a kernel calls ``count_launch``, which adds one
@@ -16,11 +17,12 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -49,10 +51,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes, directly or
+    through another header."""
+    found = [CSRC / f"{name}.cu"]
+    for path in found:
+        for header in re.findall(r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), re.M):
+            if (CSRC / header).exists() and CSRC / header not in found:
+                found.append(CSRC / header)
+    return found
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library's path, named by a hash of its sources and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:

@@ -41,24 +41,64 @@ def _close(got, want, dtype):
     assert err <= TOL[dtype] * max(1.0, want.float().abs().max().item()), err
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize(
-    "shape", [(2, 16, 20, 6, 128), (1, 9, 7, 128, 6), (2, 8, 10, 256, 128), (1, 4, 5, 512, 256),
-              (1, 3, 70, 40, 72)],
-)
-def test_conv3x3_kernel_matches_plain(dev, dtype, shape):
+def _conv_inputs(dev, dtype, shape):
     b, h, w, ci, co = shape
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((b, h, w, ci), generator=g, device=dev).to(dtype)
     k = (torch.randn((3, 3, ci, co), generator=g, device=dev) / (9 * ci) ** 0.5).to(dtype)
     bias = torch.randn((co,), generator=g, device=dev).to(dtype)
+    return x, k, bias
+
+
+# In bf16 these reach every plan of ops/conv3x3.plan_conv3x3 and its edges:
+# the stem and Cin = 40 (generic); narrow split with 64 and 128 rows,
+# unsplit (3-pixel-wide images) and over three N tiles (Cout = 20);
+# tma_narrow past the bottom and right edges (130 x 131) and over three N
+# tiles with Cin = 64 (64 x 200); wgmma split on 64 x 64 tiles with M < 64,
+# on 128 x 128 tiles with Cin = 320 (45 slices in 11 splits) and a ragged M
+# (2 x 33 x 41); wgmma unsplit on 64 x 64 (Cout = 192) and 128 x 128
+# (3-pixel-wide images); tma split past the right edge with Cin = 384 (54
+# slices in 5 splits, 32 x 40); tma at 128 x 128 past the bottom and right
+# edges (130 x 131), at 128 x 256 exact (128 x 160) and past the bottom
+# edge with Cin = 64 (66 x 128), and at 256 x 128 past both edges
+# (260 x 262).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "shape", [(2, 16, 20, 6, 128), (1, 9, 7, 128, 6), (2, 8, 10, 256, 128), (1, 4, 5, 512, 256),
+              (1, 3, 70, 40, 72), (2, 2, 3, 256, 256), (2, 16, 20, 320, 256), (2, 33, 41, 128, 128),
+              (2, 32, 40, 384, 128), (2, 64, 80, 128, 6), (1, 12, 10, 192, 20),
+              (1, 130, 131, 128, 128), (2, 128, 160, 256, 256), (1, 130, 131, 128, 6),
+              (1, 40, 50, 64, 192), (1, 66, 128, 64, 256), (8, 700, 3, 64, 128),
+              (2, 260, 262, 64, 128), (16, 700, 3, 64, 6), (1, 64, 200, 64, 20)],
+)
+def test_conv3x3_kernel_matches_plain(dev, dtype, shape):
+    x, k, bias = _conv_inputs(dev, dtype, shape)
     n0 = _build.launch_counts["conv3x3"]
     got = conv3x3.conv3x3(x, k, bias)
     torch.cuda.synchronize()
     assert _build.launch_counts["conv3x3"] == n0 + 1
-    assert got.dtype == dtype and got.shape == (b, h, w, co)
+    assert got.dtype == dtype and got.shape == (*x.shape[:3], k.shape[3])
     _close(got, conv3x3.conv3x3_plain(x, k, bias), dtype)
     _close(conv3x3.conv3x3(x, k), conv3x3.conv3x3_plain(x, k), dtype)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 5, 512, 256), (2, 8, 10, 256, 6), (2, 32, 40, 256, 256)])
+def test_conv3x3_split_k_is_bitwise_deterministic(dev, shape):
+    x, k, bias = _conv_inputs(dev, torch.bfloat16, shape)
+    assert conv3x3.plan_conv3x3(*shape, torch.bfloat16).splits > 1
+    first = conv3x3.conv3x3(x, k, bias)
+    second = conv3x3.conv3x3(x, k, bias)
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+def test_conv3x3_unaligned_input_takes_the_generic_kernel(dev):
+    """The wgmma kernels copy 16-byte rows; an input 2 bytes off that
+    alignment goes to the generic kernel and still matches."""
+    x, k, bias = _conv_inputs(dev, torch.bfloat16, (1, 16, 20, 128, 128))
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 and conv3x3.plan_conv3x3(*x.shape, 128).variant != "generic"
+    _close(conv3x3.conv3x3(shifted, k, bias), conv3x3.conv3x3_plain(x, k, bias), torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
