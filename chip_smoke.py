@@ -10,7 +10,8 @@ Phases, each of which fails the run on any error:
   3. kernel phase: every kernel at every one of those shapes, in float32
      and bfloat16, against its plain PyTorch version on the card, timed
      beside the plain version and one library call (cuDNN with TF32 off),
-     each as the device time of back-to-back calls;
+     each as the device time of back-to-back calls, with the plan that
+     ops/conv3x3.plan_conv3x3 or ops/fir_resample2x.plan_fir2x chose;
   4. model phase: a small float32 model's score on the card (kernels)
      against the same score on the CPU (plain versions), with witnesses:
      the card on the plain versions, and both with a two-pass GroupNorm
@@ -193,7 +194,8 @@ def check_kernel(kind, shape, cout, dtype_name, dev, seed, cycles_per_ms):
                 return F.conv2d(x_lib, w_lib, stride=2, padding=1, groups=c)
 
         n_out = kern().numel()
-        plan = None
+        p = fir_mod.plan_fir2x(b, h, w, c, dtype, up)
+        plan = dict(variant=p.variant, vec=p.vec, rows=p.rows, cols=p.cols, stages=p.stages, grid=list(p.grid))
         flops = (12.0 if up else 40.0) * n_out  # the kernel's multiply-adds x 2
         nbytes = (x.numel() + n_out) * item
     got, want, lib = kern(), plain(), library()
@@ -229,10 +231,11 @@ def ptxas_lines(text):
 
 
 def plan_text(plan):
-    if plan is None:
-        return ""
-    return (f" plan {plan['variant']} {plan['bm']}x{plan['bn']} stages {plan['stages']} "
-            f"S {plan['splits']}")
+    if "splits" in plan:  # conv3x3
+        return (f" plan {plan['variant']} {plan['bm']}x{plan['bn']} stages {plan['stages']} "
+                f"S {plan['splits']}")
+    tile = f" x {plan['cols']} cols, stages {plan['stages']}" if plan["variant"] == "tma" else ""
+    return f" plan {plan['variant']} strip {plan['rows']}{tile}, grid {tuple(plan['grid'])}"
 
 
 def main() -> int:

@@ -703,37 +703,6 @@ cudaError_t launch_wgmma(const Args& a, const Shape& s, int splits, cudaStream_t
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, a libcuda entry point looked up through the
-// runtime, so that the library needs no link to libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 tensor map in the 128-byte swizzle: `rank` dims, innermost first,
-// with the byte strides of dims 1.. and the box to load.
-bool encode_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
-                const cuuint32_t* box) {
-  const EncodeTiled encode = tensor_map_encoder();
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  return encode && encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides, box, ones,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int MW, int BN, int STAGES>
 cudaError_t launch_tma(const Args& a, const Shape& s, int splits, cudaStream_t stream) {
   auto kernel = conv3x3_tma_kernel<MW, BN, STAGES>;
@@ -750,7 +719,8 @@ cudaError_t launch_tma(const Args& a, const Shape& s, int splits, cudaStream_t s
   const cuuint64_t w_strides[1] = {(cuuint64_t)s.Cout * 2};
   const cuuint32_t w_box[2] = {64, SLICE};
   CUtensorMap x_map, w_map;
-  if (!encode_map(&x_map, a.x, 4, x_dims, x_strides, x_box) || !encode_map(&w_map, a.w, 2, w_dims, w_strides, w_box))
+  if (!hopper::encode_bf16_map(&x_map, a.x, 4, x_dims, x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::encode_bf16_map(&w_map, a.w, 2, w_dims, w_strides, w_box, CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
   const dim3 grid(s.B * ((s.H + 8 * MW - 1) / (8 * MW)) * ((s.W + TMA_W - 1) / TMA_W), s.Cout / BN, splits);
   kernel<<<grid, 384, tma_smem_bytes(128 * MW, BN, STAGES), stream>>>(
@@ -774,7 +744,8 @@ cudaError_t launch_tma_narrow(const Args& a, const Shape& s, cudaStream_t stream
                                    (cuuint64_t)s.H * s.W * s.Cin * 2};
   const cuuint32_t x_box[4] = {SLICE, TMA_W, NARROW_BOX_H, 1};
   CUtensorMap x_map;
-  if (!encode_map(&x_map, a.x, 4, x_dims, x_strides, x_box)) return cudaErrorInvalidValue;
+  if (!hopper::encode_bf16_map(&x_map, a.x, 4, x_dims, x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
   int device = 0, sms = 0;
   cudaGetDevice(&device);
   const cudaError_t got = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);

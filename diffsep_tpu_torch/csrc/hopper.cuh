@@ -3,8 +3,11 @@
 // mbarriers, TMA tile loads, register hand-over between warpgroups, the
 // shared-memory matrix descriptor, and warpgroup MMA (wgmma) for bf16 in,
 // f32 accumulators, one wrapper per N (the overload is chosen by the size of
-// the accumulator array: N / 2 floats per thread).
+// the accumulator array: N / 2 floats per thread); on the host, the encoding
+// of a bf16 tensor map for TMA.
 #pragma once
+#include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -213,5 +216,35 @@ __device__ __forceinline__ void wgmma_m64k16(float (&d)[128], uint64_t desc_a, u
       : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
 }
 
+// cuTensorMapEncodeTiled, a libcuda entry point looked up through the
+// runtime, so that a library needs no link to libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor map: `rank` dims, innermost first, with the byte strides of
+// dims 1.. and the box to load; a box past the tensor's edge loads zeros.
+inline bool encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                            const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = tensor_map_encoder();
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return encode && encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides, box, ones,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 }  // namespace hopper

@@ -16,6 +16,8 @@ It is the plain version of the FIR 2x resampling kernels in
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -27,6 +29,15 @@ __all__ = ["upfirdn2d", "out_size"]
 
 def out_size(n: int, up: int, down: int, pad0: int, pad1: int, k: int) -> int:
     return (n * up + pad0 + pad1 - k) // down + 1
+
+
+@functools.lru_cache(maxsize=256)
+def _flipped(kernel: bytes, shape: tuple, device: torch.device, dtype: torch.dtype) -> Tensor:
+    """The float32 kernel (its bytes and shape), flipped for F.conv2d, on
+    ``device`` in ``dtype``: made once, so that a call on the card copies
+    nothing from the host and does not wait for the stream."""
+    k = torch.from_numpy(np.frombuffer(kernel, np.float32).reshape(shape).copy())
+    return torch.flip(k, (0, 1)).to(device=device, dtype=dtype)
 
 
 def _as_tuple2(v):
@@ -54,8 +65,8 @@ def upfirdn2d(
         x = z.reshape(b, c, h * up_y, w * up_x)
     # F.pad crops for negative amounts as well
     x = F.pad(x, (px0, px1, py0, py1))
-    k = torch.as_tensor(np.asarray(kernel, np.float32), device=x.device)
-    k = torch.flip(k, (0, 1)).to(x.dtype)
+    k = np.asarray(kernel, np.float32)
+    k = _flipped(k.tobytes(), k.shape, x.device, x.dtype)
     kh, kw = k.shape
     out = F.conv2d(x, k.expand(c, 1, kh, kw), stride=(down_y, down_x), groups=c)
     if data_format == "NHWC":

@@ -19,7 +19,7 @@ from diffsep_tpu_torch.ops.conv3x3 import conv3x3
 ATOL = 1e-4
 
 # The 27 distinct conv shapes ((B, H, W, Cin), Cout) of one flagship NCSN++
-# score evaluation at batch 2 x 5 s (PERF.md, per-shape table).
+# score evaluation at batch 2 x 5 s (`chip_smoke.py --report` writes a row for each).
 FLAGSHIP_CONVS = [
     ((2, 256, 320, 6), 128), ((2, 256, 320, 128), 6), ((2, 256, 320, 128), 128),
     ((2, 256, 320, 256), 128), ((2, 128, 160, 128), 6), ((2, 128, 160, 128), 128),

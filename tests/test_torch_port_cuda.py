@@ -101,27 +101,81 @@ def test_conv3x3_unaligned_input_takes_the_generic_kernel(dev):
     _close(conv3x3.conv3x3(shifted, k, bias), conv3x3.conv3x3_plain(x, k, bias), torch.bfloat16)
 
 
+def _fir_case(dev, dtype, shape, up, down_taps=TAPS_DOWN):
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    taps = tuple(2 * t for t in down_taps) if up else down_taps
+    plain = fir_resample2x.fir_up2x_plain if up else fir_resample2x.fir_down2x_plain
+    return x, taps, plain(x, taps)
+
+
+# In bf16 and f32 these reach every plan of ops/fir_resample2x.plan_fir2x
+# and its edges: "direct" at C = 6 and 3 (odd H and W); "stream" at C = 40,
+# 16 and 96, at small C % 64 == 0 calls (W = 5, odd 9 x 11) in bf16 and at
+# every C % 4 == 0 in f32; "tma" at W = 5 (16 x 65 x 5), at odd H and W
+# with strips that do not divide H (75 x 150), at a 700-column image with
+# a ragged last tile, and at the flagship's largest shape both ways.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "shape", [(2, 16, 20, 6), (1, 8, 10, 128), (2, 5, 5, 256), (1, 7, 9, 3), (1, 32, 40, 96),
-              (1, 16, 20, 16), (2, 12, 14, 40)],
+              (1, 16, 20, 16), (2, 12, 14, 40), (2, 9, 11, 64), (1, 75, 150, 128), (16, 65, 5, 256),
+              (4, 9, 700, 64), (2, 256, 320, 128)],
 )
 @pytest.mark.parametrize("up", [False, True])
 @pytest.mark.parametrize("down_taps", [TAPS_DOWN, TAPS_DOWN_ASYM], ids=["sym", "asym"])
 def test_fir_kernels_match_plain(dev, dtype, shape, up, down_taps):
-    g = torch.Generator(device=dev).manual_seed(1)
-    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    x, taps, want = _fir_case(dev, dtype, shape, up, down_taps)
     name = "fir_up2x" if up else "fir_down2x"
     fn = fir_resample2x.fir_up2x if up else fir_resample2x.fir_down2x
-    plain = fir_resample2x.fir_up2x_plain if up else fir_resample2x.fir_down2x_plain
-    taps = tuple(2 * t for t in down_taps) if up else down_taps
     n0 = _build.launch_counts[name]
     got = fn(x, taps)
     torch.cuda.synchronize()
     assert _build.launch_counts[name] == n0 + 1
-    want = plain(x, taps)
     assert got.shape == want.shape and got.dtype == dtype
     _close(got, want, dtype)
+
+
+def _fir_plans(shape, up):
+    """Every variant at several strip, tile and ring geometries for a bf16
+    input of this shape."""
+    b, h, w, c = shape
+    steps, cols = (h, w) if up else (h // 2, w // 2)
+    plans = [fir_resample2x._stream("direct", 1, b, steps, cols, c, rows) for rows in (1, 4)]
+    plans += [fir_resample2x._stream("stream", 8, b, steps, cols, c, rows) for rows in (1, 5, 64)]
+    plans += [fir_resample2x._tma(b, steps, cols, c, up, tw, rows, stages)
+              for tw, rows, stages in [(8, 1, 1), (16, 3, 2), (32, 32, 4), (32, 7, 3)]]
+    return plans
+
+
+@pytest.mark.parametrize("shape", [(1, 37, 24, 128), (2, 9, 11, 64), (2, 4, 5, 256), (2, 128, 160, 128)])
+@pytest.mark.parametrize("up", [False, True])
+def test_fir_every_plan_matches_plain(dev, shape, up):
+    """Each kernel under strips of 1 to 64 steps, tiles of 8 to 32 columns
+    and rings of 1 to 4 stages (a strip longer than the image, a ring deeper
+    than the strip) gives the plain result, bitwise the same on a second
+    call: a ring stage refilled before every thread has read it would show
+    here, at the large shape, as a mismatch or a difference between calls."""
+    x, taps, want = _fir_case(dev, torch.bfloat16, shape, up, TAPS_DOWN_ASYM)
+    for plan in _fir_plans(shape, up):
+        got = fir_resample2x._launch(x, taps, up, plan)
+        again = fir_resample2x._launch(x, taps, up, plan)
+        torch.cuda.synchronize()
+        _close(got, want, torch.bfloat16)
+        assert torch.equal(got.view(torch.int16), again.view(torch.int16)), plan
+
+
+@pytest.mark.parametrize("up", [False, True])
+def test_fir_unaligned_input_takes_the_direct_kernel(dev, up):
+    """The 16-byte kernels need an aligned base address; an input 2 bytes off
+    it goes to the direct kernel and still matches."""
+    x, taps, want = _fir_case(dev, torch.bfloat16, (1, 64, 80, 128), up)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16
+    assert fir_resample2x.plan_fir2x(*x.shape, x.dtype, up, aligned=False).variant == "direct"
+    assert fir_resample2x.plan_fir2x(*x.shape, x.dtype, up).variant != "direct"
+    fn = fir_resample2x.fir_up2x if up else fir_resample2x.fir_down2x
+    _close(fn(shifted, taps), want, torch.bfloat16)
 
 
 def test_wrappers_check_their_inputs(dev):
