@@ -19,7 +19,18 @@ Phases, each of which fails the run on any error:
   5. serving phase: the flagship separates 2 mixtures of 5 s with
      reverse_diffusion + ald2 at N=30, then ddim + none at N=6; outputs
      must be finite and of shape (2, 2, 40000), and each kernel's launch
-     count must be its per-evaluation count times the evaluations.
+     count must be its per-evaluation count times the evaluations;
+  6. training phase: the ICASSP separation recipe (nf=128, bf16, batch 6 x
+     5 s, accumulate 2, init hack 5) trains through the entry point
+     (diffsep_tpu_torch.cli.train.main) on a seeded synthetic WSJ0-mix
+     folder for TRAIN_WARMUP + TRAIN_TIMED micro-steps, validates once and
+     writes a checkpoint. Every loss must be finite and every micro-step
+     must launch TRAIN_PER_STEP kernels (forward, backward); every kernel
+     shape of a micro-step is held against its plain version and timed;
+     the checkpoint's EMA weights must separate a mixture; the flagship's
+     loss.backward() must reach every 3x3 conv weight; and a small float32
+     model's loss and parameter gradients on the kernels must match the
+     plain versions on the card and the CPU.
 
 The last lines are the `{"kernels": [...]}` summary, then
 `{"ok": true, "device": {...}}`. With --report, every result (per shape,
@@ -48,6 +59,15 @@ HBM_BYTES_PER_S = 3.35e12
 SERVE_BATCH, SERVE_SECONDS, FS = 2, 5, 8000
 PER_EVAL = {"conv3x3": 106, "fir_down2x": 18, "fir_up2x": 18}  # flagship NCSN++ launches per score evaluation
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}  # of max(1, max|plain|); see tests/test_torch_port_cuda.py
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED = 6, 2, 8  # the recipe's batch; micro-steps
+# launches per training micro-step, (forward, backward): the conv's backward
+# is cuDNN's; each FIR up's backward is a FIR down and each in-block FIR
+# down's an up (the 6 input-pyramid downs take no gradient)
+TRAIN_PER_STEP = {"conv3x3": (106, 0), "fir_down2x": (18, 18), "fir_up2x": (18, 12)}
+# the small float32 model's parameter gradients, max |difference| over the
+# global gradient norm: the kernels against the plain versions on the card,
+# and the card against the CPU (the forward's GroupNorm rounding gap, phase 4)
+GRAD_TOL = {"kernels vs plain on the card": 1e-4, "card vs cpu": 1e-3}
 KERNELS = {
     "conv3x3": dict(source="diffsep_tpu_torch/csrc/conv3x3.cu",
                     replaces="diffsep_tpu/ops/pallas/conv3x3.py:75"),
@@ -217,6 +237,223 @@ def check_kernel(kind, shape, cout, dtype_name, dev, seed, cycles_per_ms):
     )
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper replaced by its plain PyTorch version."""
+    from diffsep_tpu_torch.ops import conv3x3 as conv_mod
+    from diffsep_tpu_torch.ops import fir_resample2x as fir_mod
+
+    with contextlib.ExitStack() as stack:
+        for mod, name in [(conv_mod, "conv3x3"), (fir_mod, "fir_down2x"), (fir_mod, "fir_up2x")]:
+            stack.enter_context(mock.patch.object(mod, name, getattr(mod, name + "_plain")))
+        yield
+
+
+def loss_and_grads(model, draws, mix, tgt):
+    """One micro-step's loss and parameter gradients (float32, on the CPU)
+    for given draws, through the trainer's loss."""
+    import torch
+
+    from diffsep_tpu_torch.train.losses import Draws
+    from diffsep_tpu_torch.train.trainer import make_loss_fn
+
+    sm = model.score_model
+    sm.zero_grad(set_to_none=True)
+    dev = model.device
+    loss = make_loss_fn(sm, model.sde, model.loss_cfg)(
+        Draws(None, {k: torch.from_numpy(v).to(dev) for k, v in draws.items()}), mix.to(dev), tgt.to(dev))
+    loss.backward()
+    grads = {name: (p.grad if p.grad is not None else torch.zeros_like(p)).float().cpu()
+             for name, p in sm.named_parameters()}
+    return loss.item(), grads
+
+
+def train_phase(dev, card, cycles_per_ms, rng, extra_overrides=()):
+    """Phase 6: the recipe trains through its entry point; see the module
+    docstring. ``extra_overrides`` go to the entry point after the phase's
+    own. Returns the phase's report."""
+    import tempfile
+
+    import torch
+
+    from diffsep_tpu_torch.cli import train as train_cli
+    from diffsep_tpu_torch.data.audio_io import load_wav
+    from diffsep_tpu_torch.data.synthetic import write_wsj0_mix
+    from diffsep_tpu_torch.model import DiffSepModel
+    from diffsep_tpu_torch.models import layers
+    from diffsep_tpu_torch.ops import _build
+    from diffsep_tpu_torch.train.checkpoints import load_payload
+
+    out = {}
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    per_step = []
+    make_train_step = DiffSepModel.make_train_step
+
+    def counted_train_step(self, seed):
+        """The train step, recording each micro-step's launches (all and
+        backward), its kernel shapes and the peak memory after it."""
+        train_step = make_train_step(self, seed)
+
+        def run(state, mix, target, *args, **kwargs):
+            before = [collections.Counter(c) for c in
+                      (_build.launch_counts, _build.backward_counts, _build.launch_shapes)]
+            metrics = train_step(state, mix, target, *args, **kwargs)
+            after = (_build.launch_counts, _build.backward_counts, _build.launch_shapes)
+            launches, backward, shapes = (collections.Counter(a) - b for a, b in zip(after, before))
+            per_step.append(dict(launches=dict(launches), backward=dict(backward), shapes=shapes,
+                                 batch=list(mix.shape), peak_gib=torch.cuda.max_memory_allocated() / 2**30))
+            return metrics
+
+        return run
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        data = write_wsj0_mix(Path(tmp) / "wsj0_mix", {"train": 2 * TRAIN_BATCH, "val": 5},
+                              seconds=SERVE_SECONDS, fs=FS, seed=0)
+        overrides = ["experiment=icassp-separation", f"path.datasets.wsj0_mix={data}",
+                     f"path.exp_root={tmp}/exp", f"trainer.max_steps={steps}", "model.valid_max_sep_batches=1", *extra_overrides]
+        log(f"[train] python -m diffsep_tpu_torch.cli.train {' '.join(overrides)}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(DiffSepModel, "make_train_step", counted_train_step):
+            state = train_cli.main(overrides)
+        torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t0
+        out["launches"] = dict(_build.launch_counts)
+        out["backward_launches"] = dict(_build.backward_counts)
+        run_dir = next(Path(tmp, "exp").glob("*/*/train_log.jsonl")).parent
+        records = [json.loads(line) for line in (run_dir / "train_log.jsonl").read_text().splitlines()]
+        index = json.loads((run_dir / "checkpoints" / "index.json").read_text())
+        val = index[str(steps)]
+        assert state.step == steps and len(per_step) == steps, (state.step, len(per_step))
+
+        # speed: host clock from the start of the first timed micro-step to the
+        # synchronize that ends the last one
+        rows = [r for r in records if "step" in r]
+        start = next(r["start_s"] for r in rows if r["step"] == TRAIN_WARMUP + 1)
+        end = [r["synced_s"] for r in records if "synced_s" in r][-1]
+        ms = (end - start) * 1e3 / TRAIN_TIMED
+        out.update(
+            batch=per_step[0]["batch"], ms_per_micro_step=ms, micro_steps_per_s=1e3 / ms,
+            samples_per_s=TRAIN_BATCH * 1e3 / ms, peak_gib=max(s["peak_gib"] for s in per_step),
+            losses=[r["train/score_loss"] for r in rows], grad_norms=[r["grad/norm"] for r in rows],
+            validation=val, per_step=[dict(launches=s["launches"], backward=s["backward"]) for s in per_step],
+        )
+        log(f"[train] {steps} micro-steps of batch {out['batch']} in {out['run_s']:.1f} s with validation "
+            f"and checkpoint; timed {TRAIN_TIMED} after {TRAIN_WARMUP}: {ms:.2f} ms per micro-step, "
+            f"{out['micro_steps_per_s']:.3f} micro-steps/s, {out['samples_per_s']:.3f} samples/s, "
+            f"peak {out['peak_gib']:.2f} GiB ({card})")
+        for r in rows:
+            log(f"[train] micro-step {r['step']}: loss {r['train/score_loss']:.6g} "
+                f"grad norm {r['grad/norm']:.6g} lr {r['lr']:.3g}")
+        log(f"[train] validation: {val}")
+        log(f"[train] launches per micro-step {per_step[-1]['launches']}, of them backward "
+            f"{per_step[-1]['backward']}; whole run {out['launches']}")
+        assert all(np.isfinite(out["losses"])) and all(np.isfinite(out["grad_norms"])), out["losses"]
+        assert np.isfinite(val["val/score_loss"]) and np.isfinite(val["val/si_sdr"]), val
+        want = {k: sum(v) for k, v in TRAIN_PER_STEP.items()}
+        want_bwd = {k: v[1] for k, v in TRAIN_PER_STEP.items() if v[1]}
+        for s in per_step:
+            assert s["launches"] == want and s["backward"] == want_bwd, (s["launches"], s["backward"])
+
+        # the checkpoint reloads, and its EMA weights separate one mixture
+        payload = load_payload(run_dir / "checkpoints" / "latest.pt")
+        ema = payload["train_state"]["ema"]
+        assert payload["step"] == steps and ema["num_updates"] == steps // 2, (payload["step"], ema["num_updates"])
+        model = DiffSepModel(payload["config"], device=dev, seed=1)
+        model.score_model.load_state_dict(ema["params"], strict=True)
+        del payload, ema
+        mix_path = sorted((data / "2speakers/wav8k/max/cv/mix").iterdir())[0]
+        mix1 = torch.from_numpy(load_wav(mix_path)[0][None])
+        est, nfe = model.separate(mix1, generator=torch.Generator(device=dev).manual_seed(0))
+        assert est.shape == (1, 2, mix1.shape[-1]) and torch.isfinite(est).all(), est.shape
+        log(f"[train] checkpoint {run_dir.name}/checkpoints/latest.pt reloaded: its EMA weights separate "
+            f"{mix_path.name} in {nfe} evaluations, output {tuple(est.shape)}, finite")
+
+        # the flagship's loss.backward() reaches every 3x3 conv weight
+        b_rng = np.random.default_rng(5)
+        n = SERVE_SECONDS * FS
+        draws = {"mask": np.array([0.05, 0.5, 0.5, 0.5, 0.5, 0.05], np.float32),
+                 "z0": b_rng.standard_normal((TRAIN_BATCH, 2, n), dtype=np.float32),
+                 "z": b_rng.standard_normal((TRAIN_BATCH, 2, n), dtype=np.float32),
+                 "shuffle": b_rng.uniform(size=(TRAIN_BATCH, 2)).astype(np.float32),
+                 "time": b_rng.uniform(size=TRAIN_BATCH).astype(np.float32)}
+        tgt6 = torch.from_numpy(0.1 * b_rng.standard_normal((TRAIN_BATCH, 2, n), dtype=np.float32))
+        mix6 = tgt6.sum(dim=1, keepdim=True)
+        _, grads = loss_and_grads(model, draws, mix6, tgt6)
+        conv_w = [name + ".weight" for name, m in model.score_model.named_modules()
+                  if isinstance(m, layers.Conv) and m.weight.shape[-1] == 3]
+        dead = [w for w in conv_w if not (torch.isfinite(grads[w]).all() and grads[w].abs().max() > 0)]
+        assert len(conv_w) == PER_EVAL["conv3x3"] and not dead, (len(conv_w), dead)
+        log(f"[train] flagship loss.backward(): all {len(conv_w)} 3x3 conv weights have a finite, "
+            f"nonzero gradient")
+        del model, grads
+
+    # every kernel shape of a micro-step (forward and backward), bf16,
+    # against its plain version, timed
+    shapes = per_step[-1]["shapes"]
+    checks = []
+    for i, ((k, shape, cout), cnt) in enumerate(sorted(shapes.items(), key=str)):
+        r = check_kernel(k, shape, cout, "bfloat16", dev, 100 + i, cycles_per_ms)
+        r["launches_per_micro_step"] = cnt
+        checks.append(r)
+        log(f"[train-kernel] {k} {shape}->{cout} bf16 x{cnt}:{plan_text(r['plan'])} "
+            f"err {r['max_abs_err']:.3g} (tol {r['tol']:.3g}) ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
+            f"lib {r['library_ms']:.4f} bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
+    out["kernel_checks"] = checks
+    bad = [r for r in checks if not r["ok"]]
+    assert not bad, f"kernel mismatches at training shapes: {bad}"
+
+    # a small float32 model: loss and gradients, kernels vs plain on the
+    # card, and the card vs the CPU
+    small = {"score_model": {"backbone_args": {
+        "nf": 32, "ch_mult": (1, 1, 2, 2), "num_res_blocks": 1, "dtype": "float32"}}}
+    m_gpu = DiffSepModel(small, device=dev, seed=1)
+    m_cpu = DiffSepModel(small, device="cpu", seed=1)
+    randomize_(m_cpu.score_model, seed=3)
+    m_gpu.score_model.load_state_dict(m_cpu.score_model.state_dict())
+    b, n = 2, FS
+    tgt = torch.from_numpy(rng.standard_normal((b, 2, n)).astype(np.float32))
+    mix = tgt.sum(dim=1, keepdim=True)
+    # one sample on the init branch (t = T), one on the regular one
+    draws = {"mask": np.array([0.05, 0.9], np.float32),
+             "z0": rng.standard_normal((b, 2, n)).astype(np.float32),
+             "z": rng.standard_normal((b, 2, n)).astype(np.float32),
+             "shuffle": rng.uniform(size=(b, 2)).astype(np.float32),
+             "time": rng.uniform(size=b).astype(np.float32)}
+    res, counts = {}, {}
+    for route in ("kernels", "plain"):
+        with plain_kernels() if route == "plain" else contextlib.nullcontext():
+            _build.reset_counts()
+            res[route] = loss_and_grads(m_gpu, draws, mix, tgt)
+            torch.cuda.synchronize()
+            counts[route] = (dict(_build.launch_counts), dict(_build.backward_counts))
+    res["cpu"] = loss_and_grads(m_cpu, draws, mix, tgt)
+
+    def grad_err(a, b):
+        ga, gb = res[a][1], res[b][1]
+        norm = torch.sqrt(sum((g.double() ** 2).sum() for g in gb.values())).item()
+        return max((ga[k] - gb[k]).abs().max().item() for k in gb) / norm
+
+    pairs = {"kernels vs plain on the card": ("kernels", "plain"), "card vs cpu": ("kernels", "cpu"),
+             "plain on the card vs cpu": ("plain", "cpu")}
+    small_check = {name: grad_err(a, b) for name, (a, b) in pairs.items()}
+    loss_rel = {name: abs(res[a][0] - res[b][0]) / abs(res[b][0]) for name, (a, b) in pairs.items()}
+    out["small_f32_grad_check"] = dict(grad_rel_err=small_check, loss_rel_err=loss_rel, tol=GRAD_TOL,
+                                       launches=counts["kernels"], losses={k: v[0] for k, v in res.items()})
+    for name, v in small_check.items():
+        log(f"[train] nf=32 f32 parameter gradients, {name}: {v:.3g} of the gradient norm "
+            f"(loss {loss_rel[name]:.3g} relative)")
+    log(f"[train] nf=32 launches (all, backward): kernels {counts['kernels']}; plain {counts['plain']}")
+    for name, tol in GRAD_TOL.items():
+        assert small_check[name] <= tol and loss_rel[name] <= tol, (name, small_check[name], loss_rel[name])
+    assert all(counts["kernels"][0].get(k, 0) > 0 for k in TRAIN_PER_STEP), counts
+    assert all(counts["kernels"][1].get(k, 0) > 0 for k in ("fir_down2x", "fir_up2x")), counts
+    assert not counts["plain"][0], counts
+    return out
+
+
 def ptxas_lines(text):
     """nvcc's -Xptxas -v report, one instantiation at a time: its kernel (the
     mangled template arguments shortened) beside its register and spill lines."""
@@ -313,8 +550,6 @@ def main() -> int:
     # TF32 off, plain FIR), and both with a two-pass GroupNorm variance, each
     # held against the CPU computing the same formula.
     from diffsep_tpu_torch.models import layers
-    from diffsep_tpu_torch.ops import conv3x3 as conv_mod
-    from diffsep_tpu_torch.ops import fir_resample2x as fir_mod
 
     small = {"score_model": {"backbone_args": {
         "nf": 32, "ch_mult": (1, 1, 2, 2), "num_res_blocks": 1, "dtype": "float32"}}}
@@ -329,8 +564,7 @@ def main() -> int:
     for route, gn in itertools.product(("kernels", "plain"), ("one-read", "two-pass")):
         with contextlib.ExitStack() as stack, torch.no_grad():
             if route == "plain":
-                for mod, name in [(conv_mod, "conv3x3"), (fir_mod, "fir_down2x"), (fir_mod, "fir_up2x")]:
-                    stack.enter_context(mock.patch.object(mod, name, getattr(mod, name + "_plain")))
+                stack.enter_context(plain_kernels())
             if gn == "two-pass":
                 stack.enter_context(mock.patch.object(layers.GroupNorm, "forward", two_pass_group_norm))
             _build.reset_counts()
@@ -409,24 +643,40 @@ def main() -> int:
             f"launches {counts} ({card})")
     report["serving"] = serve
 
+    # 6. training phase
+    report["train"] = train = train_phase(dev, card, cycles_per_ms, rng)
+
     # summary per kernel: the bf16 (serving) times summed over one score
-    # evaluation's launches at batch 2
-    main_counts = serve["reverse_diffusion+ald2 N=30"]["launches"]
+    # evaluation's launches at batch 2, and the bf16 times summed over one
+    # training micro-step's launches (forward and backward) at batch 6;
+    # launches over both main paths, the serving run at N=30 and the
+    # training run
+    serve_counts = serve["reverse_diffusion+ald2 N=30"]["launches"]
     summary = []
     for k, meta in KERNELS.items():
         rows = [r for r in results if r["kernel"] == k]
         bf = [r for r in rows if r["dtype"] == "bfloat16"]
+        tr = [r for r in train["kernel_checks"] if r["kernel"] == k]
 
         def per_eval_sum(key):
             return sum(r[key] * r["launches_per_eval"] for r in bf)
 
+        def per_step_sum(key):
+            return sum(r[key] * r["launches_per_micro_step"] for r in tr)
+
         summary.append(dict(
             name=k, route="cuda", source=meta["source"], replaces=meta["replaces"],
-            launches=main_counts[k], max_abs_err=max(r["max_abs_err"] for r in rows),
+            launches=serve_counts[k] + train["launches"][k],
+            max_abs_err=max(r["max_abs_err"] for r in rows + tr),
             ms=per_eval_sum("ms"), plain_ms=per_eval_sum("plain_ms"),
             bound_ms=per_eval_sum("bound_ms"),
             bound_by="operations" if per_eval_sum("ops_ms") >= per_eval_sum("bytes_ms") else "bytes",
             library_ms=per_eval_sum("library_ms"),
+            launches_by_path={"serve N=30": serve_counts[k], "train": train["launches"][k],
+                              "train backward": train["backward_launches"].get(k, 0)},
+            launches_per_micro_step={"forward": TRAIN_PER_STEP[k][0], "backward": TRAIN_PER_STEP[k][1]},
+            train_ms_per_micro_step=per_step_sum("ms"), train_plain_ms=per_step_sum("plain_ms"),
+            train_bound_ms=per_step_sum("bound_ms"), train_library_ms=per_step_sum("library_ms"),
         ))
     report["summary"] = summary
     if args.report is not None:

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 from scipy.io import wavfile
 
-from ..model import DiffSepModel, normalize_batch
+from ..model import DiffSepModel
+from ..train.losses import normalize_batch
 
 log = logging.getLogger(__name__)
 
@@ -90,7 +91,7 @@ def main(argv=None) -> None:
         # the raw mixture is projected onto estimates of the normalized
         # mixture: scale_output absorbs the std, and the mean is not added
         # back (separate() of a normalized mixture stays in that domain)
-        mix_n = normalize_batch(torch.from_numpy(mix))[0]
+        (mix_n, _), _, _ = normalize_batch(torch.from_numpy(mix))
         est, _ = model.separate(mix_n, generator=generator, **kw)
         est = scale_output(mix, est.float().cpu().numpy())
         for src in range(est.shape[1]):

@@ -9,6 +9,12 @@ plus a transpose per leaf:
   flax Dense kernel (I, O)        -> Dense weight (O, I)
   flax GroupNorm scale            -> GroupNorm weight
   NIN W/b, Fourier W, biases      -> unchanged
+
+``train_state_from_jax`` carries a whole JAX ``TrainState`` across: the
+parameters, the EMA shadow and its count, Adam's moments and count,
+``optax.MultiSteps``'s accumulated gradient and counters, and AutoClip's
+history, each tree of parameter shape through the same mapping. Both
+packages can then take the same step from the same state.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax"]
+__all__ = ["state_dict_from_jax", "train_state_from_jax"]
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
@@ -65,3 +71,41 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             np.array(arr, np.float32, order="C")
         )
     return out
+
+
+def _find_adam(node):
+    """The ``ScaleByAdamState`` (count, mu, nu) inside an optax state."""
+    if hasattr(node, "mu") and hasattr(node, "nu"):
+        return node
+    if isinstance(node, tuple):
+        for child in node:
+            found = _find_adam(child)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(state, model):
+    """A JAX ``TrainState`` (numpy or jax arrays) -> the port's TrainState
+    for ``model`` (a ``DiffSepModel``), whose parameters it loads."""
+    model.score_model.load_state_dict(state_dict_from_jax(state.params), strict=True)
+    ts = model.init_state()
+    opt = state.opt_state
+    multi = opt if hasattr(opt, "acc_grads") else None
+    adam = _find_adam(multi.inner_opt_state if multi is not None else opt)
+    clip = None
+    if hasattr(state.clip_state, "history"):
+        clip = {"history": torch.from_numpy(np.array(state.clip_state.history, np.float32)),
+                "count": int(state.clip_state.count)}
+    ts.load_state_dict({
+        "step": int(state.step),
+        "optimizer": {
+            "mu": state_dict_from_jax(adam.mu), "nu": state_dict_from_jax(adam.nu), "count": int(adam.count),
+            "acc": state_dict_from_jax(multi.acc_grads) if multi is not None else None,
+            "mini_step": int(multi.mini_step) if multi is not None else 0,
+            "gradient_step": int(multi.gradient_step) if multi is not None else 0,
+        },
+        "ema": {"params": state_dict_from_jax(state.ema.params), "num_updates": int(state.ema.num_updates)},
+        "clip": clip,
+    })
+    return ts

@@ -95,8 +95,9 @@ class Conv(nn.Module):
 
     The 3x3 case runs ``ops.conv3x3.conv3x3``: the CUDA kernel on the GPU,
     ``F.conv2d`` on the CPU. Its weight goes in as a contiguous HWIO copy in
-    the compute dtype, made once per weight version (a load or an update of
-    the parameter bumps it) and kept, not rebuilt on every call. The 1x1
+    the compute dtype. Without grad mode it is made once per weight version
+    (a load or an optimizer step bumps it) and kept, not rebuilt on every
+    call; in grad mode it is made on every call, differentiably. The 1x1
     case is a plain matrix product.
     """
 
@@ -117,6 +118,10 @@ class Conv(nn.Module):
 
     def _kernel_weight(self, dt: torch.dtype) -> Tensor:
         w = self.weight
+        if torch.is_grad_enabled() and w.requires_grad:
+            # training: a differentiable copy, so that dW reaches the
+            # float32 parameter
+            return w.permute(2, 3, 1, 0).to(dt).contiguous()
         key = (dt, w.device, w.data_ptr(), w._version)
         if self._hwio is None or self._hwio[0] != key:
             with torch.no_grad():

@@ -9,7 +9,9 @@ one ``nvcc`` per source at once.
 
 Every wrapper that launches a kernel calls ``count_launch``, which adds one
 to ``launch_counts[name]`` and to ``launch_shapes[(name, shape, cout)]``, so
-a run can show which kernels its path went through, and at which shapes.
+a run can show which kernels its path went through, and at which shapes; a
+launch from an autograd backward also adds one to ``backward_counts[name]``
+and to ``backward_shapes[(name, shape, cout)]``.
 """
 from __future__ import annotations
 
@@ -34,6 +36,8 @@ KERNEL_SOURCES = ("conv3x3", "fir_resample2x")
 
 launch_counts: collections.Counter = collections.Counter()
 launch_shapes: collections.Counter = collections.Counter()
+backward_counts: collections.Counter = collections.Counter()
+backward_shapes: collections.Counter = collections.Counter()
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[tuple, Callable[..., int]] = {}
@@ -130,14 +134,19 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
 
 
-def count_launch(name: str, shape: tuple, cout=None) -> None:
+def count_launch(name: str, shape: tuple, cout=None, backward: bool = False) -> None:
     """One launch of kernel ``name`` on an input of ``shape`` (and ``cout``
-    output channels, for a kernel that changes them)."""
+    output channels, for a kernel that changes them), made by an autograd
+    backward where ``backward``."""
+    key = (name, tuple(shape), cout)
     launch_counts[name] += 1
-    launch_shapes[(name, tuple(shape), cout)] += 1
+    launch_shapes[key] += 1
+    if backward:
+        backward_counts[name] += 1
+        backward_shapes[key] += 1
 
 
 def reset_counts() -> None:
-    launch_counts.clear()
-    launch_shapes.clear()
+    for counter in (launch_counts, launch_shapes, backward_counts, backward_shapes):
+        counter.clear()
 

@@ -25,6 +25,18 @@ Which kernel runs is a pure function of the shape, ``plan_fir2x``:
 A strip is ``rows`` steps: output rows for down, input rows (two output
 rows each) for up. Every call counts as one launch of ``fir_down2x`` or
 ``fir_up2x``.
+
+Gradients. The two are mutually adjoint, and each one's backward launches
+the other kernel, as ``_pallas_bwd`` (``diffsep_tpu/ops/upfirdn2d.py:157-186``)
+routes it: upfirdn2d(g, flip(k), up=down, down=up) with the pads derived
+there. For k = 4 that is
+  * d fir_up2x(x, f)   = fir_down2x(g, f reversed), pads (1, 1) at every size;
+  * d fir_down2x(x, f) = fir_up2x(g, f reversed), pads (2, 1) where H and W
+    are even. An odd H or W needs (2, 2) on that axis, which neither kernel
+    computes, so that backward raises (NCSN++ pads its frames to a multiple
+    of 64 and never trains at such a size).
+A backward launch counts as a launch of the kernel it runs, and as a
+backward one (``_build.backward_counts``).
 """
 from __future__ import annotations
 
@@ -35,6 +47,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 from .upfirdn2d import out_size, upfirdn2d
@@ -174,8 +187,10 @@ def _entry():
                         (ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_Args), ctypes.c_void_p))
 
 
-def _launch(x: Tensor, taps: Sequence[float], up: bool, plan: Optional[FirPlan] = None) -> Tensor:
-    """Runs ``plan`` (by default ``plan_fir2x``'s) on a CUDA tensor."""
+def _launch(x: Tensor, taps: Sequence[float], up: bool, plan: Optional[FirPlan] = None,
+            backward: bool = False) -> Tensor:
+    """Runs ``plan`` (by default ``plan_fir2x``'s) on a CUDA tensor; counted
+    as a backward launch where ``backward``."""
     if x.device.type != "cuda":
         raise ValueError(f"fir_resample2x: no kernel for device {x.device}")
     if x.ndim != 4 or x.dtype not in _DTYPES or not x.is_contiguous():
@@ -193,19 +208,51 @@ def _launch(x: Tensor, taps: Sequence[float], up: bool, plan: Optional[FirPlan] 
     name = "fir_up2x" if up else "fir_down2x"
     # the current stream's handle, as torch's own generated kernels take it
     _build.check(_entry()(ptr, out.data_ptr(), args, torch._C._cuda_getCurrentRawStream(device)), name)
-    _build.count_launch(name, shape)
+    _build.count_launch(name, shape, backward=backward)
     return out
 
 
-def fir_down2x(x: Tensor, taps: Sequence[float]) -> Tensor:
-    """Factor-2 decimation of x (B, H, W, C) -> (B, H // 2, W // 2, C)."""
+def _resample(x: Tensor, taps: Tuple[float, ...], up: bool, backward: bool = False) -> Tensor:
+    """The kernel for a CUDA tensor, the plain version for a CPU one."""
     if x.device.type == "cpu":
-        return fir_down2x_plain(x, taps)
-    return _launch(x, taps, up=False)
+        return (fir_up2x_plain if up else fir_down2x_plain)(x, taps)
+    return _launch(x, taps, up, backward=backward)
+
+
+class _Fir2x(torch.autograd.Function):
+    """``_resample`` forward; the other direction, taps reversed, backward."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, taps: Tuple[float, ...], up: bool) -> Tensor:
+        ctx.taps, ctx.up, ctx.in_shape = taps, up, tuple(x.shape)
+        return _resample(x, taps, up)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad: Tensor):
+        _, h, w, _ = ctx.in_shape
+        if not ctx.up and (h % 2 or w % 2):
+            raise NotImplementedError(
+                f"fir_down2x backward: no kernel for an odd-sized input {ctx.in_shape} "
+                "(its adjoint pads (2, 2) on the odd axis)"
+            )
+        return _resample(grad.contiguous(), ctx.taps[::-1], not ctx.up, backward=True), None, None
+
+
+def _fir2x(x: Tensor, taps: Sequence[float], up: bool) -> Tensor:
+    taps = tuple(float(t) for t in taps)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Fir2x.apply(x, taps, up)
+    return _resample(x, taps, up)
+
+
+def fir_down2x(x: Tensor, taps: Sequence[float]) -> Tensor:
+    """Factor-2 decimation of x (B, H, W, C) -> (B, H // 2, W // 2, C);
+    differentiable where grad mode is on, for even H and W."""
+    return _fir2x(x, taps, up=False)
 
 
 def fir_up2x(x: Tensor, taps: Sequence[float]) -> Tensor:
-    """Factor-2 interpolation of x (B, H, W, C) -> (B, 2 H, 2 W, C)."""
-    if x.device.type == "cpu":
-        return fir_up2x_plain(x, taps)
-    return _launch(x, taps, up=True)
+    """Factor-2 interpolation of x (B, H, W, C) -> (B, 2 H, 2 W, C);
+    differentiable where grad mode is on."""
+    return _fir2x(x, taps, up=True)

@@ -6,7 +6,8 @@ Counterpart of ``MixSDE`` in ``diffsep_tpu/sde/mixsde.py``:
     sigma(t) = sigma_min (sigma_max / sigma_min)^t
 
 with A = 11^T/n the averaging matrix and Pn = I - A. Both mean and std
-operators are a A + b Pn, so inverses and ratios are closed forms.
+operators are a A + b Pn, so inverses and ratios are closed forms. The
+variance-proportional time sampler is the JAX package's inverse-CDF table.
 """
 from __future__ import annotations
 
@@ -30,6 +31,25 @@ def mix_mats(ndim: int, dtype=torch.float32, device=None) -> Tuple[Tensor, Tenso
 
 def _col(v: Tensor) -> Tensor:
     return v[:, None, None]
+
+
+def interp(x: Tensor, xp: Tensor, fp: Tensor) -> Tensor:
+    """``jnp.interp``: piecewise-linear through (xp, fp), xp increasing,
+    constant past either end."""
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, xp.shape[0] - 1)
+    x0, x1, f0, f1 = xp[i - 1], xp[i], fp[i - 1], fp[i]
+    f = f0 + (x - x0) / (x1 - x0) * (f1 - f0)
+    return torch.where(x < xp[0], fp[0], torch.where(x > xp[-1], fp[-1], f))
+
+
+def inv_cdf_times(u: Tensor, t_eps: float, T: float, std_fn, table: int = 1024) -> Tensor:
+    """Times in [t_eps, T] with density proportional to std_fn(t), at the
+    uniform draws u in [0, 1): the inverse CDF of a ``table``-point grid
+    (``_inv_cdf_times``, diffsep_tpu/sde/mixsde.py:46-56)."""
+    grid = torch.linspace(t_eps, T, table, dtype=torch.float32, device=u.device)
+    cdf = torch.cumsum(std_fn(grid), dim=0)
+    cdf = (cdf - cdf[0]) / (cdf[-1] - cdf[0])
+    return interp(u, cdf, grid)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +86,10 @@ class MixSDE(SDE):
         denom = 1.0 + self.d_lambda / self.logsig
         ev2 = mult * (s_ratio_power - torch.exp(-2.0 * self.d_lambda * t)) / denom
         return ev1, ev2
+
+    def _var(self, t: Tensor) -> Tensor:
+        ev1, ev2 = self._cov_eigval(t)
+        return 0.5 * (ev1 + ev2)
 
     def _std(self, t: Tensor) -> Tensor:
         A, Pn = mix_mats(self.ndim, t.dtype, t.device)
@@ -124,3 +148,8 @@ class MixSDE(SDE):
                 device=mean.device,
             )
         return mean + self._std(t) @ z
+
+    def sample_time_varprop(self, u: Tensor, t_eps: float = 0.0) -> Tensor:
+        """Times with density proportional to the marginal std, at the
+        uniform draws u (one per time)."""
+        return inv_cdf_times(u, t_eps, self.T, lambda t: torch.sqrt(self._var(t)))

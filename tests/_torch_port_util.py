@@ -9,6 +9,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from diffsep_tpu.models import NCSNpp as JaxNCSNpp
@@ -106,3 +107,62 @@ def jax_pc_noise(key, shape, N: int, corrector_steps: int = 1):
     noise["corrector"] = np.asarray(corr, np.float32)
     noise["predictor"] = np.asarray(pred, np.float32)
     return {k: torch.from_numpy(v) for k, v in noise.items()}
+
+
+def jax_loss_draws(key, shape, init_hack=False, order="random"):
+    """The draws diffsep_tpu's training_loss makes from `key` for a target of
+    `shape` (batch, n_src, samples), under the names of
+    diffsep_tpu_torch.train.losses.Draws: the key splits of
+    diffsep_tpu/train/losses.py replayed (training_loss :518, sample_prior
+    :172-180, compute_score_loss_with_pit :253-266, _masked_init_step
+    :366-405), each primitive drawn as it draws it. The time draw is the
+    uniform in [0, 1) from which uniform(minval, maxval) and the varprop
+    inverse CDF both start."""
+    import math
+
+    b, n, _ = shape
+    draws = {}
+
+    def time_z(kt, kz):
+        draws["time"] = jax.random.uniform(kt, (b,))
+        draws["z"] = jax.random.normal(kz, shape, jnp.float32)
+
+    def sel(ks):
+        draws["sel"] = jax.random.randint(ks, (b,), 0, math.factorial(n))
+
+    if init_hack in (5, 6, 7):
+        k_mask, k_init, k_reg, k_shuf = jax.random.split(key, 4)
+        draws["mask"] = jax.random.uniform(k_mask, (b,))
+        draws["z0"] = jax.random.normal(k_init, shape, jnp.float32)
+        draws["shuffle"] = jax.random.uniform(k_shuf, (b, n))
+        if init_hack == 6:
+            kt, kz, ks = jax.random.split(k_reg, 3)
+            sel(ks)
+        else:
+            kt, kz = jax.random.split(k_reg)
+        time_z(kt, kz)
+    elif order == "pit":
+        kt, kz, ks = jax.random.split(key, 3)
+        time_z(kt, kz)
+        sel(ks)
+    else:
+        k_ord, key = jax.random.split(key)
+        if order == "random":
+            draws["shuffle"] = jax.random.uniform(k_ord, (b, n))
+        kt, kz = jax.random.split(key)
+        time_z(kt, kz)
+        if init_hack == 4:
+            draws["select"] = jax.random.uniform(jax.random.split(kz)[0], (b,))
+    return {k: np.array(v) for k, v in draws.items()}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module's tests (imported by a test module,
+    it applies to that module): the models are tiny, and the test workers
+    run in parallel, where each worker's full thread pool would contend for
+    the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

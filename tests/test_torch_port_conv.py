@@ -56,18 +56,22 @@ def test_conv3x3_bias_and_edges():
 
 
 def test_conv_module_caches_the_kernel_weight(rng):
-    """The HWIO copy is made once per weight version: a second call reuses
-    it, a load_state_dict (in-place copy) replaces it."""
+    """Without grad mode (serving) the HWIO copy is made once per weight
+    version: a second call reuses it, a load_state_dict (in-place copy)
+    replaces it. (In grad mode the copy is made per call, differentiably:
+    tests/test_torch_port_autograd.py.)"""
     conv = Conv(4, 8, 3)
     conv.reset_parameters(torch.Generator().manual_seed(0))
     x = torch.from_numpy(rng.standard_normal((1, 6, 7, 4)).astype(np.float32))
-    y0 = conv(x)
-    cached = conv._hwio[1]
-    conv(x)
+    with torch.no_grad():
+        y0 = conv(x)
+        cached = conv._hwio[1]
+        conv(x)
     assert conv._hwio[1] is cached
     w = torch.from_numpy(rng.standard_normal((8, 4, 3, 3)).astype(np.float32))
     conv.load_state_dict({"weight": w, "bias": torch.zeros(8)})
-    y1 = conv(x)
+    with torch.no_grad():
+        y1 = conv(x)
     assert conv._hwio[1] is not cached
     want = conv3x3_reference(jnp.asarray(x.numpy()), jnp.asarray(w.numpy().transpose(2, 3, 1, 0)))
     np.testing.assert_allclose(y1.detach().numpy(), np.asarray(want), atol=ATOL)

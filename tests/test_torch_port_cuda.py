@@ -206,3 +206,153 @@ def test_small_model_on_the_card_matches_the_cpu(dev):
         want = cpu.score_fn(xt, t, mix)
     assert _build.launch_counts["conv3x3"] > 0 and _build.launch_counts["fir_up2x"] > 0
     assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+# --- gradients -----------------------------------------------------------
+# The training path's shapes: one micro-step of the flagship recipe (NCSN++
+# nf=128, bf16, batch 6 x 5 s), its loss's forward and backward on the card.
+# Gradient tolerances are those of the outputs above, of max(1, |plain|):
+# both sides sum the same terms in float32 (the conv's backward is cuDNN's
+# on both routes) and round once to the working type.
+TRAIN_BATCH = 6
+
+
+@pytest.fixture(scope="module")
+def training_launches():
+    """{(kernel, input shape, cout): launches} of one flagship micro-step,
+    forward and backward, and of its backward alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from diffsep_tpu_torch.model import DiffSepModel
+    from diffsep_tpu_torch.train.losses import Draws
+    from diffsep_tpu_torch.train.trainer import make_loss_fn
+
+    dev = torch.device("cuda")
+    model = DiffSepModel(device=dev, seed=0)
+    rng = np.random.default_rng(0)
+    tgt = torch.from_numpy(0.1 * rng.standard_normal((TRAIN_BATCH, 2, 40000), dtype=np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _build.reset_counts()
+    loss = make_loss_fn(model.score_model, model.sde, model.loss_cfg)(
+        Draws(gen), tgt.sum(dim=1, keepdim=True), tgt)
+    loss.backward()
+    torch.cuda.synchronize()
+    out = dict(_build.launch_shapes), dict(_build.backward_shapes)
+    _build.reset_counts()
+    return out
+
+
+def _shapes(launches, kernel):
+    return sorted({(shape, cout) for (k, shape, cout) in launches if k == kernel})
+
+
+def test_training_micro_step_launches(training_launches):
+    """Per micro-step: conv3x3 106 forward (its backward is cuDNN's), FIR
+    down 18 + 18 (the backward of every up), FIR up 18 + 12 (the backward
+    of the 12 in-block downs; the input pyramid's 6 take no gradient)."""
+    every, backward = training_launches
+
+    def total(counter, kernel):
+        return sum(n for (k, _, _), n in counter.items() if k == kernel)
+
+    assert {k: total(every, k) for k in ("conv3x3", "fir_down2x", "fir_up2x")} == {
+        "conv3x3": 106, "fir_down2x": 36, "fir_up2x": 30}
+    assert {k: total(backward, k) for k in ("conv3x3", "fir_down2x", "fir_up2x")} == {
+        "conv3x3": 0, "fir_down2x": 18, "fir_up2x": 12}
+
+
+def _grads(fn, inputs, g):
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    return (out, *torch.autograd.grad(out, leaves, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_gradients_match_plain_at_training_shapes(training_launches, dev, dtype):
+    for (b, h, w, ci), co in _shapes(training_launches[0], "conv3x3"):
+        x, k, bias = _conv_inputs(dev, dtype, (b, h, w, ci, co))
+        g = torch.randn((b, h, w, co), device=dev).to(dtype)
+        n0 = _build.launch_counts["conv3x3"]
+        got = _grads(conv3x3.conv3x3, (x, k, bias), g)
+        assert _build.launch_counts["conv3x3"] == n0 + 1
+        want = _grads(conv3x3.conv3x3_plain, (x, k, bias), g)
+        for a, b_ in zip(got, want):
+            assert a.shape == b_.shape and a.dtype == b_.dtype
+            _close(a, b_, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("down_taps", [TAPS_DOWN, TAPS_DOWN_ASYM], ids=["sym", "asym"])
+def test_fir_gradients_match_plain_at_training_shapes(training_launches, dev, dtype, down_taps):
+    """Every shape a micro-step launches each direction at, forward or
+    backward: the output, and the input gradient, which is the other kernel
+    at the output's shape (so every backward launch's shape is among them)."""
+    for up, name, other in [(False, "fir_down2x", "fir_up2x"), (True, "fir_up2x", "fir_down2x")]:
+        fn = fir_resample2x.fir_up2x if up else fir_resample2x.fir_down2x
+        plain = fir_resample2x.fir_up2x_plain if up else fir_resample2x.fir_down2x_plain
+        for shape, _ in _shapes(training_launches[0], name):
+            x, taps, _ = _fir_case(dev, dtype, shape, up, down_taps)
+            g = torch.randn(plain(x, taps).shape, device=dev).to(dtype)
+            n0, b0 = _build.launch_counts[name], _build.backward_counts[other]
+            got = _grads(lambda t: fn(t, taps), (x,), g)
+            assert _build.launch_counts[name] == n0 + 1 and _build.backward_counts[other] == b0 + 1
+            want = _grads(lambda t: plain(t, taps), (x,), g)
+            for a, b_ in zip(got, want):
+                _close(a, b_, dtype)
+
+
+@pytest.mark.parametrize("up", [False, True])
+def test_fir_backward_repeats_bit_for_bit(dev, up):
+    x, taps, want = _fir_case(dev, torch.bfloat16, (TRAIN_BATCH, 256, 320, 128) if not up else
+                              (TRAIN_BATCH, 128, 160, 128), up, TAPS_DOWN_ASYM)
+    g = torch.randn(want.shape, device=dev).to(torch.bfloat16)
+    fn = fir_resample2x.fir_up2x if up else fir_resample2x.fir_down2x
+    first = _grads(lambda t: fn(t, taps), (x,), g)[1]
+    second = _grads(lambda t: fn(t, taps), (x,), g)[1]
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+def test_odd_fir_down_backward_raises(dev):
+    x = torch.randn((1, 9, 10, 64), device=dev, requires_grad=True)
+    y = fir_resample2x.fir_down2x(x, TAPS_DOWN)
+    with pytest.raises(NotImplementedError, match="odd-sized"):
+        y.sum().backward()
+
+
+def test_small_model_train_step_on_the_card_matches_the_cpu(dev):
+    """Two accumulated micro-steps (one optimizer step) of a small float32
+    model from the same weights and draws: each micro-step's loss and
+    gradient norm, and Adam's moments, card against CPU (the parameters
+    themselves move by about +-lr wherever a gradient is nonzero, so a
+    gradient near 0 can take either sign on either device)."""
+    from diffsep_tpu_torch.model import DiffSepModel
+
+    cfg = {"model": {"init_hack": 5, "init_hack_p": 0.5, "score_model": {"backbone_args": {
+        "nf": 16, "ch_mult": (1, 2, 2), "num_res_blocks": 1, "attn_resolutions": (16,),
+        "image_size": 64, "dtype": "float32"}, "stft_args": {"n_fft": 126, "hop_length": 32}}},
+        "trainer": {"accumulate_grad_batches": 2}}
+    rng = np.random.default_rng(0)
+    b, n = 2, 2000
+    tgt = torch.from_numpy(rng.standard_normal((b, 2, n)).astype(np.float32))
+    mix = tgt.sum(dim=1, keepdim=True)
+    draws = [{"mask": np.array(m, np.float32), "z0": rng.standard_normal((b, 2, n)).astype(np.float32),
+              "z": rng.standard_normal((b, 2, n)).astype(np.float32),
+              "shuffle": rng.uniform(size=(b, 2)).astype(np.float32),
+              "time": rng.uniform(size=b).astype(np.float32)} for m in ([0.1, 0.9], [0.9, 0.2])]
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        model = DiffSepModel(cfg, device=device, seed=3)
+        state = model.init_state()
+        step = model.make_train_step(seed=0)
+        metrics = [step(state, mix.to(device), tgt.to(device), draws=d) for d in draws]
+        runs[device.type] = dict(
+            metrics=[{k: float(v) for k, v in m.items()} for m in metrics],
+            mu=[t.cpu() for t in state.optimizer.mu], nu=[t.cpu() for t in state.optimizer.nu])
+    card, cpu = runs["cuda"], runs["cpu"]
+    for m_card, m_cpu in zip(card["metrics"], cpu["metrics"]):
+        for key in ("train/score_loss", "grad/norm"):
+            assert abs(m_card[key] - m_cpu[key]) <= 1e-3 * abs(m_cpu[key]), (key, m_card, m_cpu)
+    for key in ("mu", "nu"):
+        norm = torch.sqrt(sum((t.double() ** 2).sum() for t in cpu[key])).item()
+        err = max((a - b_).abs().max().item() for a, b_ in zip(card[key], cpu[key]))
+        assert err <= 1e-3 * norm, (key, err, norm)

@@ -1,14 +1,14 @@
 """The port stands alone: no file of diffsep_tpu_torch/, chip_smoke.py nor
-the port's profiling script imports jax, flax or the JAX package."""
+the port's scripts (scripts/torch_port_*.py) imports jax, flax or the JAX
+package."""
 import ast
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "diffsep_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_port_profile.py",
-]
+FILES = sorted((ROOT / "diffsep_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "scripts").glob("torch_port_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "flax", "diffsep_tpu")
 
 
@@ -29,3 +29,5 @@ def test_no_jax_imports(path):
 
 def test_scan_covers_the_package():
     assert len(FILES) > 15 and (ROOT / "chip_smoke.py").exists()
+    assert {p.name for p in FILES} >= {"torch_port_profile.py", "torch_port_conv_plans.py",
+                                       "torch_port_fir_plans.py", "train.py", "loop.py"}
