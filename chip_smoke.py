@@ -30,7 +30,23 @@ Phases, each of which fails the run on any error:
      the checkpoint's EMA weights must separate a mixture; the flagship's
      loss.backward() must reach every 3x3 conv weight; and a small float32
      model's loss and parameter gradients on the kernels must match the
-     plain versions on the card and the CPU.
+     plain versions on the card and the CPU;
+  7. serving entry points, on the run dir of phase 6 loaded with its EMA
+     weights by cli.loading.load_model: HTTPSeparationServer over a
+     SeparationEngine (batch 4, 1 s buckets, reverse_diffusion + ald2 at
+     N=30) takes 12 concurrent requests of seeded 3-6 s lengths and 2 bad
+     ones (stereo, 16 kHz); every good one must come back 200 with 2
+     finite channels at its own length, the bad ones 4xx, with no
+     connection reset, /metrics must count them, and the launches must be
+     the per-evaluation counts x 60 x the sampler runs. Then cli.serve's
+     stdin loop in a process of its own (4 paths in one write, ddim N=6),
+     separate_streaming on a 20 s mixture (5 s chunks, batch 8), and every
+     new sampler (euler_maruyama, heun, dpmpp, langevin, ald, denoise off,
+     ode_sample rk4) at full width on 2 x 5 s at N=4, each held to its
+     launch count. Every kernel shape of these runs that phases 3 and 6
+     did not check is held against its plain version in bf16. Last, each
+     new sampler on the nf=32 float32 model of phase 4, card against CPU
+     with the same draws, within 1e-3 of scale.
 
 The last lines are the `{"kernels": [...]}` summary, then
 `{"ok": true, "device": {...}}`. With --report, every result (per shape,
@@ -48,6 +64,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -68,6 +85,22 @@ TRAIN_PER_STEP = {"conv3x3": (106, 0), "fir_down2x": (18, 18), "fir_up2x": (18, 
 # global gradient norm: the kernels against the plain versions on the card,
 # and the card against the CPU (the forward's GroupNorm rounding gap, phase 4)
 GRAD_TOL = {"kernels vs plain on the card": 1e-4, "card vs cpu": 1e-3}
+# serving entry points: the production sampler's steps and evaluations; an
+# HTTP burst of more clients than http.server's default listen backlog (5),
+# of seeded lengths in seconds; the fast sampler of the stdin and streaming
+# runs; the steps of each new sampler's run
+PROD_N, PROD_NFE = 30, 60
+HTTP_CLIENTS, HTTP_BATCH, HTTP_SECONDS = 12, 4, (3, 6)
+STDIN_N, STREAM_SECONDS, SAMPLER_N = 6, 20, 4
+SAMPLER_CASES = [  # (label, predictor or "ode", corrector, settings)
+    ("euler_maruyama+none", "euler_maruyama", "none", {}),
+    ("heun+none", "heun", "none", {}),
+    ("dpmpp+none", "dpmpp", "none", {}),
+    ("reverse_diffusion+langevin", "reverse_diffusion", "langevin", {}),
+    ("reverse_diffusion+ald", "reverse_diffusion", "ald", {}),
+    ("reverse_diffusion+ald2 denoise=False", "reverse_diffusion", "ald2", {"denoise": False}),
+    ("ode_sample rk4", "ode", None, {}),
+]
 KERNELS = {
     "conv3x3": dict(source="diffsep_tpu_torch/csrc/conv3x3.cu",
                     replaces="diffsep_tpu/ops/pallas/conv3x3.py:75"),
@@ -159,8 +192,9 @@ def randomize_(module, seed):
                 p.add_(0.1 * torch.randn(p.shape, generator=g))
 
 
-def check_kernel(kind, shape, cout, dtype_name, dev, seed, cycles_per_ms):
-    """Kernel vs plain on one shape: error, times, bound."""
+def check_kernel(kind, shape, cout, dtype_name, dev, seed, cycles_per_ms, timed=True):
+    """Kernel vs plain on one shape: error, times (None unless ``timed``),
+    bound."""
     import torch
     import torch.nn.functional as F
 
@@ -225,16 +259,18 @@ def check_kernel(kind, shape, cout, dtype_name, dev, seed, cycles_per_ms):
     lib_err = (got.float() - lib.permute(0, 2, 3, 1).float()).abs().max().item()
     peak = PEAK_FLOPS["float32"] if kind != "conv3x3" else PEAK_FLOPS[dtype_name]
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    ms, library_ms = time_ms(kern, cycles_per_ms), time_ms(library, cycles_per_ms)
-    return dict(
+    row = dict(
         kernel=kind, shape=list(shape), cout=cout, dtype=dtype_name, plan=plan,
         max_abs_err=err, tol=TOL[dtype_name] * scale, ok=err <= TOL[dtype_name] * scale,
-        library_abs_err=lib_err,
-        ms=ms, plain_ms=time_ms(plain, cycles_per_ms), library_ms=library_ms,
-        tflops=flops / ms / 1e9, ms_per_library_ms=ms / library_ms,
+        library_abs_err=lib_err, ms=None, plain_ms=None, library_ms=None,
         bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
         ops_ms=t_ops, bytes_ms=t_bytes,
     )
+    if timed:
+        ms, library_ms = time_ms(kern, cycles_per_ms), time_ms(library, cycles_per_ms)
+        row.update(ms=ms, plain_ms=time_ms(plain, cycles_per_ms), library_ms=library_ms,
+                   tflops=flops / ms / 1e9, ms_per_library_ms=ms / library_ms)
+    return row
 
 
 @contextlib.contextmanager
@@ -268,12 +304,11 @@ def loss_and_grads(model, draws, mix, tgt):
     return loss.item(), grads
 
 
-def train_phase(dev, card, cycles_per_ms, rng, extra_overrides=()):
-    """Phase 6: the recipe trains through its entry point; see the module
-    docstring. ``extra_overrides`` go to the entry point after the phase's
-    own. Returns the phase's report."""
-    import tempfile
-
+def train_phase(dev, card, cycles_per_ms, rng, tmp, extra_overrides=()):
+    """Phase 6: the recipe trains through its entry point, in the directory
+    ``tmp``; see the module docstring. ``extra_overrides`` go to the entry
+    point after the phase's own. Returns the phase's report, with the run
+    dir it wrote under "run_dir"."""
     import torch
 
     from diffsep_tpu_torch.cli import train as train_cli
@@ -306,89 +341,90 @@ def train_phase(dev, card, cycles_per_ms, rng, extra_overrides=()):
 
         return run
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        data = write_wsj0_mix(Path(tmp) / "wsj0_mix", {"train": 2 * TRAIN_BATCH, "val": 5},
-                              seconds=SERVE_SECONDS, fs=FS, seed=0)
-        overrides = ["experiment=icassp-separation", f"path.datasets.wsj0_mix={data}",
-                     f"path.exp_root={tmp}/exp", f"trainer.max_steps={steps}", "model.valid_max_sep_batches=1", *extra_overrides]
-        log(f"[train] python -m diffsep_tpu_torch.cli.train {' '.join(overrides)}")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _build.reset_counts()
-        t0 = time.perf_counter()
-        with mock.patch.object(DiffSepModel, "make_train_step", counted_train_step):
-            state = train_cli.main(overrides)
-        torch.cuda.synchronize()
-        out["run_s"] = time.perf_counter() - t0
-        out["launches"] = dict(_build.launch_counts)
-        out["backward_launches"] = dict(_build.backward_counts)
-        run_dir = next(Path(tmp, "exp").glob("*/*/train_log.jsonl")).parent
-        records = [json.loads(line) for line in (run_dir / "train_log.jsonl").read_text().splitlines()]
-        index = json.loads((run_dir / "checkpoints" / "index.json").read_text())
-        val = index[str(steps)]
-        assert state.step == steps and len(per_step) == steps, (state.step, len(per_step))
+    data = write_wsj0_mix(Path(tmp) / "wsj0_mix", {"train": 2 * TRAIN_BATCH, "val": 5},
+                          seconds=SERVE_SECONDS, fs=FS, seed=0)
+    overrides = ["experiment=icassp-separation", f"path.datasets.wsj0_mix={data}",
+                 f"path.exp_root={tmp}/exp", f"trainer.max_steps={steps}", "model.valid_max_sep_batches=1",
+                 *extra_overrides]
+    log(f"[train] python -m diffsep_tpu_torch.cli.train {' '.join(overrides)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(DiffSepModel, "make_train_step", counted_train_step):
+        state = train_cli.main(overrides)
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    out["launches"] = dict(_build.launch_counts)
+    out["backward_launches"] = dict(_build.backward_counts)
+    run_dir = next(Path(tmp, "exp").glob("*/*/train_log.jsonl")).parent
+    out["run_dir"] = str(run_dir)
+    records = [json.loads(line) for line in (run_dir / "train_log.jsonl").read_text().splitlines()]
+    index = json.loads((run_dir / "checkpoints" / "index.json").read_text())
+    val = index[str(steps)]
+    assert state.step == steps and len(per_step) == steps, (state.step, len(per_step))
 
-        # speed: host clock from the start of the first timed micro-step to the
-        # synchronize that ends the last one
-        rows = [r for r in records if "step" in r]
-        start = next(r["start_s"] for r in rows if r["step"] == TRAIN_WARMUP + 1)
-        end = [r["synced_s"] for r in records if "synced_s" in r][-1]
-        ms = (end - start) * 1e3 / TRAIN_TIMED
-        out.update(
-            batch=per_step[0]["batch"], ms_per_micro_step=ms, micro_steps_per_s=1e3 / ms,
-            samples_per_s=TRAIN_BATCH * 1e3 / ms, peak_gib=max(s["peak_gib"] for s in per_step),
-            losses=[r["train/score_loss"] for r in rows], grad_norms=[r["grad/norm"] for r in rows],
-            validation=val, per_step=[dict(launches=s["launches"], backward=s["backward"]) for s in per_step],
-        )
-        log(f"[train] {steps} micro-steps of batch {out['batch']} in {out['run_s']:.1f} s with validation "
-            f"and checkpoint; timed {TRAIN_TIMED} after {TRAIN_WARMUP}: {ms:.2f} ms per micro-step, "
-            f"{out['micro_steps_per_s']:.3f} micro-steps/s, {out['samples_per_s']:.3f} samples/s, "
-            f"peak {out['peak_gib']:.2f} GiB ({card})")
-        for r in rows:
-            log(f"[train] micro-step {r['step']}: loss {r['train/score_loss']:.6g} "
-                f"grad norm {r['grad/norm']:.6g} lr {r['lr']:.3g}")
-        log(f"[train] validation: {val}")
-        log(f"[train] launches per micro-step {per_step[-1]['launches']}, of them backward "
-            f"{per_step[-1]['backward']}; whole run {out['launches']}")
-        assert all(np.isfinite(out["losses"])) and all(np.isfinite(out["grad_norms"])), out["losses"]
-        assert np.isfinite(val["val/score_loss"]) and np.isfinite(val["val/si_sdr"]), val
-        want = {k: sum(v) for k, v in TRAIN_PER_STEP.items()}
-        want_bwd = {k: v[1] for k, v in TRAIN_PER_STEP.items() if v[1]}
-        for s in per_step:
-            assert s["launches"] == want and s["backward"] == want_bwd, (s["launches"], s["backward"])
+    # speed: host clock from the start of the first timed micro-step to the
+    # synchronize that ends the last one
+    rows = [r for r in records if "step" in r]
+    start = next(r["start_s"] for r in rows if r["step"] == TRAIN_WARMUP + 1)
+    end = [r["synced_s"] for r in records if "synced_s" in r][-1]
+    ms = (end - start) * 1e3 / TRAIN_TIMED
+    out.update(
+        batch=per_step[0]["batch"], ms_per_micro_step=ms, micro_steps_per_s=1e3 / ms,
+        samples_per_s=TRAIN_BATCH * 1e3 / ms, peak_gib=max(s["peak_gib"] for s in per_step),
+        losses=[r["train/score_loss"] for r in rows], grad_norms=[r["grad/norm"] for r in rows],
+        validation=val, per_step=[dict(launches=s["launches"], backward=s["backward"]) for s in per_step],
+    )
+    log(f"[train] {steps} micro-steps of batch {out['batch']} in {out['run_s']:.1f} s with validation "
+        f"and checkpoint; timed {TRAIN_TIMED} after {TRAIN_WARMUP}: {ms:.2f} ms per micro-step, "
+        f"{out['micro_steps_per_s']:.3f} micro-steps/s, {out['samples_per_s']:.3f} samples/s, "
+        f"peak {out['peak_gib']:.2f} GiB ({card})")
+    for r in rows:
+        log(f"[train] micro-step {r['step']}: loss {r['train/score_loss']:.6g} "
+            f"grad norm {r['grad/norm']:.6g} lr {r['lr']:.3g}")
+    log(f"[train] validation: {val}")
+    log(f"[train] launches per micro-step {per_step[-1]['launches']}, of them backward "
+        f"{per_step[-1]['backward']}; whole run {out['launches']}")
+    assert all(np.isfinite(out["losses"])) and all(np.isfinite(out["grad_norms"])), out["losses"]
+    assert np.isfinite(val["val/score_loss"]) and np.isfinite(val["val/si_sdr"]), val
+    want = {k: sum(v) for k, v in TRAIN_PER_STEP.items()}
+    want_bwd = {k: v[1] for k, v in TRAIN_PER_STEP.items() if v[1]}
+    for s in per_step:
+        assert s["launches"] == want and s["backward"] == want_bwd, (s["launches"], s["backward"])
 
-        # the checkpoint reloads, and its EMA weights separate one mixture
-        payload = load_payload(run_dir / "checkpoints" / "latest.pt")
-        ema = payload["train_state"]["ema"]
-        assert payload["step"] == steps and ema["num_updates"] == steps // 2, (payload["step"], ema["num_updates"])
-        model = DiffSepModel(payload["config"], device=dev, seed=1)
-        model.score_model.load_state_dict(ema["params"], strict=True)
-        del payload, ema
-        mix_path = sorted((data / "2speakers/wav8k/max/cv/mix").iterdir())[0]
-        mix1 = torch.from_numpy(load_wav(mix_path)[0][None])
-        est, nfe = model.separate(mix1, generator=torch.Generator(device=dev).manual_seed(0))
-        assert est.shape == (1, 2, mix1.shape[-1]) and torch.isfinite(est).all(), est.shape
-        log(f"[train] checkpoint {run_dir.name}/checkpoints/latest.pt reloaded: its EMA weights separate "
-            f"{mix_path.name} in {nfe} evaluations, output {tuple(est.shape)}, finite")
+    # the checkpoint reloads, and its EMA weights separate one mixture
+    payload = load_payload(run_dir / "checkpoints" / "latest.pt")
+    ema = payload["train_state"]["ema"]
+    assert payload["step"] == steps and ema["num_updates"] == steps // 2, (payload["step"], ema["num_updates"])
+    model = DiffSepModel(payload["config"], device=dev, seed=1)
+    model.score_model.load_state_dict(ema["params"], strict=True)
+    del payload, ema
+    mix_path = sorted((data / "2speakers/wav8k/max/cv/mix").iterdir())[0]
+    mix1 = torch.from_numpy(load_wav(mix_path)[0][None])
+    est, nfe = model.separate(mix1, generator=torch.Generator(device=dev).manual_seed(0))
+    assert est.shape == (1, 2, mix1.shape[-1]) and torch.isfinite(est).all(), est.shape
+    log(f"[train] checkpoint {run_dir.name}/checkpoints/latest.pt reloaded: its EMA weights separate "
+        f"{mix_path.name} in {nfe} evaluations, output {tuple(est.shape)}, finite")
 
-        # the flagship's loss.backward() reaches every 3x3 conv weight
-        b_rng = np.random.default_rng(5)
-        n = SERVE_SECONDS * FS
-        draws = {"mask": np.array([0.05, 0.5, 0.5, 0.5, 0.5, 0.05], np.float32),
-                 "z0": b_rng.standard_normal((TRAIN_BATCH, 2, n), dtype=np.float32),
-                 "z": b_rng.standard_normal((TRAIN_BATCH, 2, n), dtype=np.float32),
-                 "shuffle": b_rng.uniform(size=(TRAIN_BATCH, 2)).astype(np.float32),
-                 "time": b_rng.uniform(size=TRAIN_BATCH).astype(np.float32)}
-        tgt6 = torch.from_numpy(0.1 * b_rng.standard_normal((TRAIN_BATCH, 2, n), dtype=np.float32))
-        mix6 = tgt6.sum(dim=1, keepdim=True)
-        _, grads = loss_and_grads(model, draws, mix6, tgt6)
-        conv_w = [name + ".weight" for name, m in model.score_model.named_modules()
-                  if isinstance(m, layers.Conv) and m.weight.shape[-1] == 3]
-        dead = [w for w in conv_w if not (torch.isfinite(grads[w]).all() and grads[w].abs().max() > 0)]
-        assert len(conv_w) == PER_EVAL["conv3x3"] and not dead, (len(conv_w), dead)
-        log(f"[train] flagship loss.backward(): all {len(conv_w)} 3x3 conv weights have a finite, "
-            f"nonzero gradient")
-        del model, grads
+    # the flagship's loss.backward() reaches every 3x3 conv weight
+    b_rng = np.random.default_rng(5)
+    n = SERVE_SECONDS * FS
+    draws = {"mask": np.array([0.05, 0.5, 0.5, 0.5, 0.5, 0.05], np.float32),
+             "z0": b_rng.standard_normal((TRAIN_BATCH, 2, n), dtype=np.float32),
+             "z": b_rng.standard_normal((TRAIN_BATCH, 2, n), dtype=np.float32),
+             "shuffle": b_rng.uniform(size=(TRAIN_BATCH, 2)).astype(np.float32),
+             "time": b_rng.uniform(size=TRAIN_BATCH).astype(np.float32)}
+    tgt6 = torch.from_numpy(0.1 * b_rng.standard_normal((TRAIN_BATCH, 2, n), dtype=np.float32))
+    mix6 = tgt6.sum(dim=1, keepdim=True)
+    _, grads = loss_and_grads(model, draws, mix6, tgt6)
+    conv_w = [name + ".weight" for name, m in model.score_model.named_modules()
+              if isinstance(m, layers.Conv) and m.weight.shape[-1] == 3]
+    dead = [w for w in conv_w if not (torch.isfinite(grads[w]).all() and grads[w].abs().max() > 0)]
+    assert len(conv_w) == PER_EVAL["conv3x3"] and not dead, (len(conv_w), dead)
+    log(f"[train] flagship loss.backward(): all {len(conv_w)} 3x3 conv weights have a finite, "
+        f"nonzero gradient")
+    del model, grads
 
     # every kernel shape of a micro-step (forward and backward), bf16,
     # against its plain version, timed
@@ -452,6 +488,280 @@ def train_phase(dev, card, cycles_per_ms, rng, extra_overrides=()):
     assert all(counts["kernels"][1].get(k, 0) > 0 for k in ("fir_down2x", "fir_up2x")), counts
     assert not counts["plain"][0], counts
     return out
+
+
+def percentiles(xs):
+    """p50, p95 and max of a list of seconds; None for each where it is
+    empty (no request succeeded)."""
+    if not xs:
+        return dict(p50=None, p95=None, max=None)
+    return dict(p50=float(np.percentile(xs, 50)), p95=float(np.percentile(xs, 95)), max=float(max(xs)))
+
+
+def http_burst(port, bodies):
+    """Post every body at once, one connection each, released together by a
+    barrier. Returns ([(status, response body, latency s, error)], wall s);
+    a connection the server reset or dropped has status None and its error."""
+    import http.client
+    import threading
+
+    results = [None] * len(bodies)
+    barrier = threading.Barrier(len(bodies) + 1)
+
+    def post(i):
+        barrier.wait()
+        t0 = time.perf_counter()
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+            conn.request("POST", "/v1/separate", body=bodies[i], headers={"Content-Type": "audio/wav"})
+            resp = conn.getresponse()
+            results[i] = (resp.status, resp.read(), time.perf_counter() - t0, None)
+            conn.close()
+        except (OSError, http.client.HTTPException) as e:
+            results[i] = (None, b"", time.perf_counter() - t0, f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    return results, time.perf_counter() - t0
+
+
+def scrape_metrics(port):
+    """GET /metrics -> {series: value}."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", "/metrics")
+    text = conn.getresponse().read().decode()
+    conn.close()
+    return {key: float(val) for key, val in (line.rsplit(" ", 1) for line in text.splitlines()
+                                              if line.strip() and not line.startswith("#"))}
+
+
+def launches_of(nfe, runs=1):
+    return {k: v * nfe * runs for k, v in PER_EVAL.items()}
+
+
+def serve_entry_phase(dev, card, run_dir, tmp, mix, small_pair, rng, checked):
+    """Phase 7: the serving entry points at full width; see the module
+    docstring. ``mix`` is the flagship phase's (batch, 1, n) input on the
+    card, ``small_pair`` the model phase's nf=32 float32 models (card, CPU),
+    ``checked`` the (kernel, shape, cout) keys phases 3 and 6 held against
+    the plain versions in bf16. Returns (report, launches over the phase's
+    main-path runs)."""
+    import torch
+
+    from diffsep_tpu_torch.cli.loading import load_model, read_checkpoint
+    from diffsep_tpu_torch.cli.serve import SeparationEngine
+    from diffsep_tpu_torch.cli.serve_http import HTTPSeparationServer
+    from diffsep_tpu_torch.data.audio_io import load_wav_bytes, save_wav, wav_to_bytes
+    from diffsep_tpu_torch.ops import _build
+    from diffsep_tpu_torch.sampling import ode_sample, pc_sample
+    from diffsep_tpu_torch.streaming import separate_streaming
+    from diffsep_tpu_torch.train.losses import normalize_batch
+
+    out, total, shapes = {}, collections.Counter(), collections.Counter()
+
+    def counted(label, want):
+        """Read the launches of the run just made, add them and their
+        kernel shapes to the phase's totals and hold them against ``want``."""
+        torch.cuda.synchronize()
+        got = dict(_build.launch_counts)
+        total.update(got)
+        shapes.update(_build.launch_shapes)
+        assert got == want, (label, got, want)
+        return got
+
+    # the model: the run dir that the training phase wrote, its EMA weights
+    model = load_model(run_dir, device=dev)
+    _, raw, ema = read_checkpoint(Path(run_dir) / "checkpoints" / "latest.pt")
+    held = model.score_model.state_dict()
+    assert all(torch.equal(held[k].cpu(), v) for k, v in ema.items()), "the EMA weights were not loaded"
+    assert any(not torch.equal(ema[k], raw[k]) for k in ema), "EMA and raw weights are the same"
+    del raw, ema, held
+    log(f"[serve7] {Path(run_dir).name}: loaded with its EMA weights through cli.loading.load_model")
+
+    # HTTP: a burst of concurrent clients, more than http.server's default
+    # listen backlog, and two requests the engine must refuse
+    engine = SeparationEngine(model, batch=HTTP_BATCH, bucket_s=1.0, sampler_kwargs={"N": PROD_N})
+    dispatch, finalize = engine._dispatch_bucket, engine._finalize_bucket
+    runs_timed = []  # per sampler run: rows, host s in dispatch, card busy at its return, host s in finalize
+
+    def dispatch_and_probe(mixes):
+        t0 = time.perf_counter()
+        handle = dispatch(mixes)
+        # the card still busy when the dispatch returns: it did not wait
+        runs_timed.append(dict(rows=len(mixes), dispatch_s=time.perf_counter() - t0,
+                               card_busy=not torch.cuda.current_stream(model.device).query(),
+                               bucket_s=-(-max(m.shape[-1] for m in mixes) // engine.bucket) * engine.bucket / FS))
+        return handle
+
+    def timed_finalize(handle):
+        t0 = time.perf_counter()
+        try:
+            return finalize(handle)
+        finally:
+            next(r for r in runs_timed if "finalize_s" not in r)["finalize_s"] = time.perf_counter() - t0
+
+    engine._dispatch_bucket, engine._finalize_bucket = dispatch_and_probe, timed_finalize
+    lengths = rng.integers(HTTP_SECONDS[0] * FS, HTTP_SECONDS[1] * FS + 1, size=HTTP_CLIENTS)
+    good = [(0.1 * rng.standard_normal((1, int(n)))).astype(np.float32) for n in lengths]
+    bad = [(0.1 * rng.standard_normal((2, 3 * FS))).astype(np.float32),  # stereo
+           (0.1 * rng.standard_normal((1, 3 * 2 * FS))).astype(np.float32)]  # at 16 kHz
+    bodies = [wav_to_bytes(w, FS) for w in good] + [wav_to_bytes(bad[0], FS), wav_to_bytes(bad[1], 2 * FS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    with HTTPSeparationServer(engine, port=0, max_queue=64) as srv:
+        results, wall = http_burst(srv.port, bodies)
+        metrics = scrape_metrics(srv.port)
+    runs = int(metrics["diffsep_batch_fill_count"])
+    launches = counted("http", launches_of(PROD_NFE, runs))
+    ok_lat = [lat for status, _, lat, _ in results[:HTTP_CLIENTS] if status == 200]
+    resets = [err for *_, err in results if err is not None]
+    for w, (status, body, _, err) in zip(good, results):
+        assert status == 200, (status, body[:200], err)
+        est, sr = load_wav_bytes(body)
+        assert sr == FS and est.shape == (2, w.shape[-1]) and np.isfinite(est).all(), (sr, est.shape)
+    assert all(status is not None and 400 <= status < 500 for status, *_ in results[HTTP_CLIENTS:]), \
+        [r[:2] for r in results[HTTP_CLIENTS:]]
+    assert not resets, resets
+    assert metrics['diffsep_requests_total{status="ok"}'] == HTTP_CLIENTS, metrics
+    assert metrics['diffsep_requests_total{status="error"}'] == len(bad), metrics
+    http = dict(
+        clients=len(bodies), good=HTTP_CLIENTS, bad=len(bad), lengths_s=[int(n) / FS for n in lengths],
+        wall_s=wall, requests_per_s=len(ok_lat) / wall, latency_s=percentiles(ok_lat),
+        mean_batch_fill=metrics["diffsep_batch_fill_sum"] / max(runs, 1), program_runs=runs,
+        connection_resets=len(resets), statuses=[r[0] for r in results], launches=launches,
+        runs=runs_timed,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, metrics=metrics)
+    out["http"] = http
+    lat = {k: "n/a" if v is None else f"{v:.3f}" for k, v in http["latency_s"].items()}
+    log(f"[serve7] http: {HTTP_CLIENTS} requests of {HTTP_SECONDS[0]}-{HTTP_SECONDS[1]} s + {len(bad)} bad, "
+        f"batch {HTTP_BATCH}, reverse_diffusion+ald2 N={PROD_N}: {http['requests_per_s']:.3f} requests/s, "
+        f"latency p50 {lat['p50']} p95 {lat['p95']} max {lat['max']} s, mean batch fill "
+        f"{http['mean_batch_fill']:.2f}, {runs} program runs, peak {http['peak_mem_gib']:.2f} GiB, "
+        f"{len(resets)} connection resets ({card})")
+    log(f"[serve7] http: statuses {http['statuses']}; launches {launches}")
+    for r in runs_timed:
+        log(f"[serve7] http run: {r['rows']} rows of the {r['bucket_s']:.0f} s bucket, host {r['dispatch_s']:.3f} s "
+            f"in the dispatch (card {'still busy' if r['card_busy'] else 'idle'} at its return), "
+            f"{r.get('finalize_s', float('nan')):.3f} s in the finalize")
+    del engine
+
+    # stdin: the module run as `python -m` runs it, in a process of its own
+    # that prints its launch counts and kernel shapes at exit; 4 paths in
+    # one write
+    stdin_dir, stdin_out = Path(tmp) / "stdin_in", Path(tmp) / "stdin_out"
+    paths = []
+    for i, n in enumerate(rng.integers(2 * FS + 1, 3 * FS + 1, size=4)):  # one 3 s bucket
+        paths.append(stdin_dir / f"req{i}.wav")
+        save_wav(paths[-1], (0.1 * rng.standard_normal((1, int(n)))).astype(np.float32), FS)
+    code = ("import atexit, json, runpy, sys; from diffsep_tpu_torch.ops import _build; "
+            "atexit.register(lambda: print('LAUNCHES', json.dumps(dict(_build.launch_counts)), 'SHAPES', "
+            "json.dumps([[*key, n] for key, n in _build.launch_shapes.items()]), file=sys.stderr)); "
+            "runpy.run_module('diffsep_tpu_torch.cli.serve', run_name='__main__', alter_sys=True)")
+    argv = [str(stdin_out), "--model", str(run_dir), "-N", str(STDIN_N), "--predictor", "ddim",
+            "--corrector", "none"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, *argv], input="".join(f"{p}\n" for p in paths),
+                          capture_output=True, text=True, timeout=600, cwd=Path(__file__).resolve().parent)
+    secs = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    done = [line for line in proc.stdout.splitlines() if line.startswith("DONE ")]
+    wavs = sorted(stdin_out.glob("s*/*.wav"))
+    got, child_shapes = proc.stderr.rsplit("LAUNCHES", 1)[1].splitlines()[0].split(" SHAPES ")
+    got = json.loads(got)
+    total.update(got)
+    shapes.update({(k, tuple(shape), cout): n for k, shape, cout, n in json.loads(child_shapes)})
+    assert len(done) == len(paths) and len(wavs) == 2 * len(paths), (proc.stdout, wavs)
+    assert got == launches_of(STDIN_N), got
+    out["stdin"] = dict(seconds=secs, done=done, wavs=len(wavs), launches=got)
+    log(f"[serve7] stdin: python -m diffsep_tpu_torch.cli.serve OUT --model RUN_DIR {' '.join(argv[3:])}: "
+        f"{len(done)} DONE, {len(wavs)} wavs, one micro-batch, {secs:.1f} s with start-up; launches {got}")
+
+    # streaming: a 20 s mixture in 5 s chunks, one batch of 8 rows
+    mix20 = (0.1 * rng.standard_normal((1, STREAM_SECONDS * FS))).astype(np.float32)
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    est = separate_streaming(model, mix20, chunk_s=5.0, overlap_s=0.5, batch=8,
+                             generator=torch.Generator(device=dev).manual_seed(0),
+                             predictor_name="ddim", corrector_name="none", N=STDIN_N)
+    secs = time.perf_counter() - t0
+    got = counted("streaming", launches_of(STDIN_N))
+    assert est.shape == (2, STREAM_SECONDS * FS) and np.isfinite(est).all(), est.shape
+    out["streaming"] = dict(seconds=secs, shape=list(est.shape), launches=got)
+    log(f"[serve7] streaming: {STREAM_SECONDS} s in 5 s chunks, overlap 0.5 s, batch 8, ddim N={STDIN_N}: "
+        f"{est.shape}, finite, {secs:.2f} s; launches {got}")
+
+    # every new sampler at full width, and the ODE sampler
+    (mix_n, _), _, _ = normalize_batch(mix)
+    samplers = {}
+    for label, pred, corr, settings in SAMPLER_CASES:
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        if pred == "ode":
+            with torch.no_grad():
+                est, nfe = ode_sample(model.sde, model.score_fn, mix_n, N=SAMPLER_N, eps=model.t_eps, generator=gen)
+        else:
+            est, nfe = model.separate(mix, generator=gen, predictor_name=pred, corrector_name=corr, N=SAMPLER_N,
+                                      **settings)
+        got = counted(label, launches_of(nfe))
+        assert est.shape == mix.shape[:1] + (2, mix.shape[-1]) and torch.isfinite(est).all(), label
+        samplers[label] = dict(nfe=nfe, seconds=time.perf_counter() - t0, launches=got)
+        log(f"[serve7] {label} N={SAMPLER_N}: {nfe} evaluations, {tuple(est.shape)} finite, "
+            f"{samplers[label]['seconds']:.2f} s")
+    out["samplers"] = samplers
+
+    # every kernel shape of the runs above that phases 3 and 6 did not hold
+    # against its plain version (the HTTP buckets and stdin at batch 4,
+    # streaming at batch 8), bf16, untimed
+    checks = []
+    for i, ((k, shape, cout), cnt) in enumerate(sorted(shapes.items(), key=str)):
+        if (k, shape, cout) in checked:
+            continue
+        r = check_kernel(k, shape, cout, "bfloat16", dev, 200 + i, None, timed=False)
+        r["launches"] = cnt
+        checks.append(r)
+        log(f"[serve7-kernel] {k} {shape}->{cout} bf16 x{cnt}:{plan_text(r['plan'])} "
+            f"err {r['max_abs_err']:.3g} (tol {r['tol']:.3g})")
+    out["kernel_checks"] = checks
+    log(f"[serve7] {len(shapes)} kernel shapes in the runs above, {len(checks)} of them new, each held "
+        f"against its plain version")
+    bad = [r for r in checks if not r["ok"]]
+    assert not bad, f"kernel mismatches at serving shapes: {bad}"
+
+    # nf=32 float32: each new sampler on the card and on the CPU, same draws
+    m_gpu, m_cpu = small_pair
+    b, n, N = 1, FS, 3
+    y = torch.from_numpy(rng.standard_normal((b, 1, n)).astype(np.float32))
+    small = {}
+    for label, pred, corr, settings in SAMPLER_CASES:
+        draw = {k: torch.from_numpy(rng.standard_normal(lead + (b, 2, n)).astype(np.float32))
+                for k, lead in (("prior", ()), ("corrector", (N, 1)), ("predictor", (N,)))}
+        ests = {}
+        for route, m in (("card", m_gpu), ("plain on the card", m_gpu), ("cpu", m_cpu)):
+            with plain_kernels() if route == "plain on the card" else contextlib.nullcontext(), torch.no_grad():
+                if pred == "ode":
+                    est, _ = ode_sample(m.sde, m.score_fn, y.to(m.device), N=N, prior=draw["prior"])
+                else:
+                    est, _ = pc_sample(m.sde, m.score_fn, y.to(m.device), pred, corr, N=N, noise=draw, **settings)
+            ests[route] = est.cpu()
+        scale = ests["cpu"].abs().max().item()
+        small[label] = dict(scale=scale, **{f"{r} vs cpu": (ests[r] - ests["cpu"]).abs().max().item() / scale
+                                            for r in ("card", "plain on the card")})
+        log(f"[serve7] nf=32 f32 {label} N={N}: card vs cpu {small[label]['card vs cpu']:.3g}, plain on the "
+            f"card vs cpu {small[label]['plain on the card vs cpu']:.3g} of scale {scale:.3g}")
+    out["small_f32_sampler_check"] = small
+    bad = {k: v for k, v in small.items() if not v["card vs cpu"] <= 1e-3}
+    assert not bad, bad
+    out["launches"] = dict(total)
+    return out, dict(total)
 
 
 def ptxas_lines(text):
@@ -643,20 +953,27 @@ def main() -> int:
             f"launches {counts} ({card})")
     report["serving"] = serve
 
-    # 6. training phase
-    report["train"] = train = train_phase(dev, card, cycles_per_ms, rng)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # 6. training phase
+        report["train"] = train = train_phase(dev, card, cycles_per_ms, rng, tmp)
+        # 7. serving entry points, on the run dir phase 6 wrote
+        checked = {(r["kernel"], tuple(r["shape"]), r["cout"]) for r in results + train["kernel_checks"]
+                   if r["dtype"] == "bfloat16"}
+        report["serve_entry_points"], entry_counts = serve_entry_phase(
+            dev, card, train["run_dir"], tmp, mix, (m_gpu, m_cpu), rng, checked)
 
     # summary per kernel: the bf16 (serving) times summed over one score
     # evaluation's launches at batch 2, and the bf16 times summed over one
     # training micro-step's launches (forward and backward) at batch 6;
-    # launches over both main paths, the serving run at N=30 and the
-    # training run
+    # launches over the main paths: the serving run at N=30, the training
+    # run and the serving entry points
     serve_counts = serve["reverse_diffusion+ald2 N=30"]["launches"]
     summary = []
     for k, meta in KERNELS.items():
         rows = [r for r in results if r["kernel"] == k]
         bf = [r for r in rows if r["dtype"] == "bfloat16"]
         tr = [r for r in train["kernel_checks"] if r["kernel"] == k]
+        entry_rows = [r for r in report["serve_entry_points"]["kernel_checks"] if r["kernel"] == k]
 
         def per_eval_sum(key):
             return sum(r[key] * r["launches_per_eval"] for r in bf)
@@ -666,14 +983,15 @@ def main() -> int:
 
         summary.append(dict(
             name=k, route="cuda", source=meta["source"], replaces=meta["replaces"],
-            launches=serve_counts[k] + train["launches"][k],
-            max_abs_err=max(r["max_abs_err"] for r in rows + tr),
+            launches=serve_counts[k] + train["launches"][k] + entry_counts[k],
+            max_abs_err=max(r["max_abs_err"] for r in rows + tr + entry_rows),
             ms=per_eval_sum("ms"), plain_ms=per_eval_sum("plain_ms"),
             bound_ms=per_eval_sum("bound_ms"),
             bound_by="operations" if per_eval_sum("ops_ms") >= per_eval_sum("bytes_ms") else "bytes",
             library_ms=per_eval_sum("library_ms"),
             launches_by_path={"serve N=30": serve_counts[k], "train": train["launches"][k],
-                              "train backward": train["backward_launches"].get(k, 0)},
+                              "train backward": train["backward_launches"].get(k, 0),
+                              "serve entry points": entry_counts[k]},
             launches_per_micro_step={"forward": TRAIN_PER_STEP[k][0], "backward": TRAIN_PER_STEP[k][1]},
             train_ms_per_micro_step=per_step_sum("ms"), train_plain_ms=per_step_sum("plain_ms"),
             train_bound_ms=per_step_sum("bound_ms"), train_library_ms=per_step_sum("library_ms"),

@@ -1,12 +1,16 @@
 """Folder-to-folder separation: every ``*.wav`` of the input folder is
 separated and each source written to ``<output>/s<i>/<name>.wav``.
 
-    python -m diffsep_tpu_torch.cli.separate IN_DIR OUT_DIR --model model.pt
+    python -m diffsep_tpu_torch.cli.separate IN_DIR OUT_DIR --model RUN_DIR
 
-``--model`` is a ``.pt`` file holding the port's state dict, or a dict
-``{"state_dict": ..., "config": ...}`` whose config overrides the flagship
-model's. The estimates are projected onto the mixture's scale
-(``scale_output``) as the reference CLI does.
+Counterpart of ``diffsep_tpu/cli/separate.py``. ``--model`` is a run dir of
+``diffsep_tpu_torch.cli.train`` (its EMA weights), one of its checkpoints,
+or a reference Lightning checkpoint (``cli/loading.py``). Each file is
+normalized on its true length, zero-padded to whole seconds (the length
+bucket of the serving engine), separated by the PC sampler, cut back to its
+length, and the raw mixture is projected onto the estimates
+(``scale_output``). ``--stream-chunk-s`` separates in fixed chunks instead
+(``streaming.py``). It runs on CUDA unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -16,31 +20,46 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from scipy.io import wavfile
 
-from ..model import DiffSepModel
+from .. import resolve_device
+from ..data.audio_io import load_wav, save_wav
 from ..train.losses import normalize_batch
+from ..train.trainer import step_generator
+from .eval_common import str2bool
+from .loading import load_model
+
+DEFAULT_MODEL = "fakufaku/diffsep"
+# the first bytes of an export artifact of the JAX package (diffsep_tpu/export.py)
+ARTIFACT_MAGIC = b"DSEXP01\n"
 
 log = logging.getLogger(__name__)
 
 
-def load_wav(path):
-    """(float32 (channels, samples) in [-1, 1], fs)."""
-    fs, data = wavfile.read(str(path))
-    if data.dtype == np.int16:
-        data = data.astype(np.float32) / 32768.0
-    elif data.dtype == np.int32:
-        data = data.astype(np.float32) / 2147483648.0
-    else:
-        data = data.astype(np.float32)
-    data = data[None, :] if data.ndim == 1 else data.T
-    return np.ascontiguousarray(data), int(fs)
+def resolve_model_path(model) -> Path:
+    """The local path of ``--model``. The JAX package downloads a name that is
+    not a local path from the HuggingFace Hub; the port has no download, so
+    it says how to get the checkpoint."""
+    model = Path(model)
+    if model.exists():
+        return model
+    raise FileNotFoundError(
+        f"Model '{model}' is not a local path. Download the checkpoint "
+        f"('{DEFAULT_MODEL}', file checkpoint.pt) where there is network access "
+        "and pass its path via --model."
+    )
 
 
-def save_wav(path: Path, data: np.ndarray, fs: int) -> None:
-    """Write one channel of float data as 16-bit PCM."""
-    path.parent.mkdir(parents=True, exist_ok=True)
-    wavfile.write(str(path), fs, (np.clip(data, -1.0, 1.0) * 32767.0).astype(np.int16))
+def reject_artifact(path: Path) -> None:
+    """An export artifact of the JAX package is not served by the port yet."""
+    try:
+        with open(path, "rb") as f:
+            is_artifact = f.read(len(ARTIFACT_MAGIC)) == ARTIFACT_MAGIC
+    except (IsADirectoryError, OSError):
+        return
+    if is_artifact:
+        raise NotImplementedError(
+            f"{path} is an export artifact: not ported to diffsep_tpu_torch yet (ROADMAP.md, "
+            "'Remaining, in order', item 2: export.py, cli/export_model.py and ArtifactEngine)")
 
 
 def scale_output(mix: np.ndarray, sep: np.ndarray) -> np.ndarray:
@@ -50,52 +69,72 @@ def scale_output(mix: np.ndarray, sep: np.ndarray) -> np.ndarray:
     return num / denom * sep
 
 
-def load_model(path: Path, device) -> DiffSepModel:
-    blob = torch.load(str(path), map_location="cpu", weights_only=True)
-    config = None
-    if "state_dict" in blob:
-        config, blob = blob.get("config"), blob["state_dict"]
-    model = DiffSepModel(config, device=device)
-    model.score_model.load_state_dict(blob, strict=True)
-    return model
-
-
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="Separate all the wav files in a folder")
     parser.add_argument("input_dir", type=Path)
     parser.add_argument("output_dir", type=Path)
-    parser.add_argument("--model", type=Path, required=True, help="port state dict (.pt)")
+    parser.add_argument("--model", type=Path, default=Path(DEFAULT_MODEL),
+                        help="run dir, checkpoint file, or reference .ckpt")
     parser.add_argument("-N", type=int, default=None, help="number of steps")
-    parser.add_argument("--predictor", default="reverse_diffusion")
-    parser.add_argument("--corrector", default="ald2")
-    parser.add_argument("-s", "--schedule", default=None)
+    parser.add_argument("--snr", type=float, default=None, help="corrector snr")
+    parser.add_argument("--corrector-steps", type=int, default=None, help="number of corrector steps")
+    parser.add_argument("--denoise", type=str2bool, default=None,
+                        help="return the last step's mean (true/false; default true)")
+    parser.add_argument("-s", "--schedule", default=None, help="time grid: linear, log or revlog")
+    parser.add_argument("--predictor", default=None,
+                        help="default reverse_diffusion; ddim/dpmpp for the fast samplers")
+    parser.add_argument("--corrector", default=None, help="default ald2; none with ddim/dpmpp")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--avg-last-k", type=int, default=None,
+                        help="average the evaluation weights of the k most recent checkpoints (run dirs)")
+    parser.add_argument("--stream-chunk-s", type=float, default=None,
+                        help="separate in fixed chunks of this many seconds, stitched with "
+                        "permutation alignment and a crossfade (streaming.py)")
+    parser.add_argument("--stream-overlap-s", type=float, default=0.5,
+                        help="chunk overlap for --stream-chunk-s")
     parser.add_argument("--device", default=None, help="default: cuda")
     args = parser.parse_args(argv)
 
-    model = load_model(args.model, args.device)
+    device = resolve_device(args.device)
+    model_path = resolve_model_path(args.model)
+    reject_artifact(model_path)
+    model = load_model(model_path, avg_last_k=args.avg_last_k, device=device)
     fs_model = int(model.config["fs"])
-    kw = dict(predictor_name=args.predictor, corrector_name=args.corrector)
-    if args.N is not None:
-        kw["N"] = args.N
-    if args.schedule is not None:
-        kw["schedule"] = args.schedule
-    generator = torch.Generator(device=model.device).manual_seed(args.seed)
+    predictor = args.predictor or "reverse_diffusion"
+    corrector = args.corrector or "ald2"
+    kw = {k: v for k, v in (("N", args.N), ("snr", args.snr), ("corrector_steps", args.corrector_steps),
+                            ("schedule", args.schedule)) if v is not None}
+    kw["denoise"] = True if args.denoise is None else args.denoise
+    args.output_dir.mkdir(parents=True, exist_ok=True)
 
-    for wavpath in sorted(args.input_dir.glob("*.wav")):
+    for i, wavpath in enumerate(sorted(args.input_dir.glob("*.wav"))):
         mix, fs = load_wav(wavpath)
         if fs != fs_model:
             log.warning("skipping %s: %d Hz, the model expects %d Hz", wavpath.name, fs, fs_model)
             continue
         mix = mix[:1][None]  # (1, 1, T)
-        # the raw mixture is projected onto estimates of the normalized
-        # mixture: scale_output absorbs the std, and the mean is not added
-        # back (separate() of a normalized mixture stays in that domain)
-        (mix_n, _), _, _ = normalize_batch(torch.from_numpy(mix))
-        est, _ = model.separate(mix_n, generator=generator, **kw)
-        est = scale_output(mix, est.float().cpu().numpy())
+        if args.stream_chunk_s is not None:
+            from ..streaming import separate_streaming
+
+            est = separate_streaming(
+                model, mix[0], chunk_s=args.stream_chunk_s, overlap_s=args.stream_overlap_s,
+                generator=step_generator(args.seed, i, device), predictor_name=predictor,
+                corrector_name=corrector, **kw,
+            )[None]
+        else:
+            # normalized on the true length, then padded to whole seconds;
+            # the raw mixture is projected onto estimates in the normalized
+            # domain (scale_output absorbs the std; the mean is not added back)
+            (mix_n, _), _, _ = normalize_batch(torch.from_numpy(mix))
+            n = mix.shape[-1]
+            padded = -(-n // fs_model) * fs_model
+            sampler = model.get_pc_sampler(
+                predictor, corrector, torch.nn.functional.pad(mix_n, (0, padded - n)),
+                generator=step_generator(args.seed, i, device), **kw)
+            est = sampler()[0][..., :n].float().cpu().numpy()
+        est = scale_output(mix, est)
         for src in range(est.shape[1]):
-            save_wav(args.output_dir / f"s{src}" / f"{wavpath.stem}.wav", est[0, src], fs)
+            save_wav(args.output_dir / f"s{src}" / f"{wavpath.stem}.wav", est[0, src:src + 1], fs)
 
 
 if __name__ == "__main__":

@@ -41,15 +41,14 @@ def load_pretrained(path: Path):
     """(score_model config, parameters, EMA parameters) of a checkpoint of
     this package: a ``.pt`` file, or a run or checkpoints dir (its
     best-model, else its latest)."""
-    from ..train.checkpoints import load_payload
+    from .loading import read_checkpoint
 
     if (path / "checkpoints").is_dir():
         path = path / "checkpoints"
     if path.is_dir():
         path = path / "best-model.pt" if (path / "best-model.pt").exists() else path / "latest.pt"
-    payload = load_payload(path)
-    ema = payload["train_state"]["ema"]["params"]
-    return payload["config"]["model"]["score_model"], payload["model"], ema
+    config, params, ema = read_checkpoint(path)
+    return config["model"]["score_model"], params, ema
 
 
 def main(argv=None):

@@ -1,23 +1,22 @@
-"""WAV reading and writing on scipy.
+"""WAV reading and writing on scipy, from files or bytes in memory.
 
-Counterpart of ``load_wav``/``save_wav`` in ``diffsep_tpu/data/audio_io.py``:
-float32 (channels, samples) in [-1, 1], integer PCM normalized as
-torchaudio.load does.
+Counterpart of ``diffsep_tpu/data/audio_io.py``: float32 (channels,
+samples) in [-1, 1], integer PCM normalized as torchaudio.load does. The
+in-memory pair serves the HTTP front end (request and response bodies).
 """
 from __future__ import annotations
 
+import io
 from pathlib import Path
 from typing import Tuple
 
 import numpy as np
 from scipy.io import wavfile
 
-__all__ = ["load_wav", "save_wav"]
+__all__ = ["load_wav", "load_wav_bytes", "save_wav", "wav_to_bytes"]
 
 
-def load_wav(path) -> Tuple[np.ndarray, int]:
-    """Read a wav file -> (float32 (channels, samples) in [-1, 1], fs)."""
-    fs, data = wavfile.read(str(path))
+def _normalize_decoded(fs: int, data: np.ndarray) -> Tuple[np.ndarray, int]:
     if data.dtype == np.int16:
         data = data.astype(np.float32) / 32768.0
     elif data.dtype == np.int32:
@@ -30,14 +29,37 @@ def load_wav(path) -> Tuple[np.ndarray, int]:
     return np.ascontiguousarray(data), int(fs)
 
 
-def save_wav(path, data: np.ndarray, fs: int, dtype: str = "int16") -> None:
-    """Write (channels, samples) float data, as 16-bit PCM by default."""
+def _encode_pcm(data: np.ndarray, dtype: str) -> np.ndarray:
+    """(channels, samples) float -> what scipy writes: (samples, channels),
+    or (samples,) for one channel; 16-bit PCM by default."""
     data = np.asarray(data)
     if data.ndim == 2:
         data = data.T if data.shape[0] > 1 else data[0]
     if dtype == "int16":
-        data = (np.clip(data, -1.0, 1.0) * 32767.0).astype(np.int16)
-    else:
-        data = data.astype(np.float32)
+        return (np.clip(data, -1.0, 1.0) * 32767.0).astype(np.int16)
+    return data.astype(np.float32)
+
+
+def load_wav(path) -> Tuple[np.ndarray, int]:
+    """Read a wav file -> (float32 (channels, samples) in [-1, 1], fs)."""
+    return _normalize_decoded(*wavfile.read(str(path)))
+
+
+def load_wav_bytes(data: bytes) -> Tuple[np.ndarray, int]:
+    """Decode wav bytes (an HTTP request body) -> (float32 (channels,
+    samples) in [-1, 1], fs)."""
+    return _normalize_decoded(*wavfile.read(io.BytesIO(data)))
+
+
+def save_wav(path, data: np.ndarray, fs: int, dtype: str = "int16") -> None:
+    """Write (channels, samples) float data, as 16-bit PCM by default."""
     Path(path).parent.mkdir(parents=True, exist_ok=True)
-    wavfile.write(str(path), fs, data)
+    wavfile.write(str(path), fs, _encode_pcm(data, dtype))
+
+
+def wav_to_bytes(data: np.ndarray, fs: int, dtype: str = "int16") -> bytes:
+    """Encode (channels, samples) float data as wav bytes: separated sources
+    become one multi-channel wav, channel i = source i."""
+    buf = io.BytesIO()
+    wavfile.write(buf, fs, _encode_pcm(data, dtype))
+    return buf.getvalue()

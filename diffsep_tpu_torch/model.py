@@ -13,7 +13,9 @@ and the recipe's loss (init hack 5) and optimizer (Adam 2e-4, fixed clip
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import math
 import warnings
 from typing import Any, Dict, Mapping, Optional
 
@@ -25,10 +27,10 @@ from . import resolve_device
 from .config.compose import instantiate
 from .models.ncsnpp import NCSNpp
 from .models.score_model import ScoreModelNCSNpp
-from .sampling.pc import pc_sample
+from .sampling.pc import get_pc_sampler, pc_sample
 from .sde.mixsde import MixSDE
 from .train import trainer
-from .train.losses import denormalize_batch, normalize_batch
+from .train.losses import denormalize_batch, normalize_batch, normalize_batch_masked
 
 Tensor = torch.Tensor
 
@@ -83,15 +85,23 @@ def merge_config(base: Mapping[str, Any], overrides: Optional[Mapping[str, Any]]
 
 
 def _warn_low_n_schedule(sde, predictor_name, N, schedule):
-    """DDIM at N <= 2 on the linear grid degenerates; the log grid does not."""
+    """DDIM-family sampling at N <= 2 on the linear grid degenerates; the log
+    grid does not."""
     n_eff = sde.N if N is None else int(N)
-    if predictor_name == "ddim" and n_eff <= 2 and schedule in (None, "linear"):
+    if predictor_name in ("ddim", "dpmpp") and n_eff <= 2 and schedule in (None, "linear"):
         grid = "default linear" if schedule is None else "linear"
         warnings.warn(
             f"predictor '{predictor_name}' with N={n_eff} on the {grid} time "
             "grid degenerates; pass schedule='log'",
             stacklevel=3,
         )
+
+
+def _device_scope(device: torch.device):
+    """``device`` as the calling thread's current CUDA device: the kernels
+    launch on the current device's stream, and a worker thread starts on
+    device 0."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 def _unsupported(what: str, value) -> NotImplementedError:
@@ -180,10 +190,11 @@ class DiffSepModel(nn.Module):
             config = config["model"]
         self.config = merge_config(FLAGSHIP, config)
         cfg = self.config
-        self.device = resolve_device(device)
         self.score_model = build_score_model(cfg)
         self.score_model.backbone.reset_parameters(torch.Generator().manual_seed(seed))
-        self.score_model.to(self.device).eval()
+        self.score_model.to(resolve_device(device)).eval()
+        # with its index: "cuda" alone means each thread's current device
+        self.device = next(self.score_model.parameters()).device
         self.sde = _build_sde(cfg)
         self.t_eps = float(cfg["t_eps"])
         self.sampler_kwargs = dict(cfg.get("sampler", {}))
@@ -214,6 +225,18 @@ class DiffSepModel(nn.Module):
         return trainer.make_val_score_loss(self.score_model, self.sde, self.loss_cfg, seed)
 
     # --- inference ---
+    def _sampler_kwargs(self, kwargs) -> Dict[str, Any]:
+        kw = dict(predictor_name="reverse_diffusion", corrector_name="ald2", eps=self.t_eps)
+        kw.update(self.sampler_kwargs)
+        kw.update(kwargs)
+        _warn_low_n_schedule(self.sde, kw["predictor_name"], kw.get("N"), kw.get("schedule"))
+        return kw
+
+    def _on_device(self, mix) -> Tensor:
+        if isinstance(mix, np.ndarray):
+            mix = torch.from_numpy(mix)
+        return mix.to(device=self.device, dtype=torch.float32)
+
     @torch.no_grad()
     def separate(self, mix, generator: Optional[torch.Generator] = None,
                  noise: Optional[Dict[str, Tensor]] = None, **kwargs):
@@ -221,16 +244,61 @@ class DiffSepModel(nn.Module):
         n_src, n_samples), nfe) with the weights the model holds (inside
         ``train.ema.swapped``: the EMA weights). Keyword arguments override
         the sampler settings (predictor_name, corrector_name, N, snr,
-        schedule, ...)."""
-        kw = dict(predictor_name="reverse_diffusion", corrector_name="ald2", eps=self.t_eps)
-        kw.update(self.sampler_kwargs)
-        kw.update(kwargs)
-        _warn_low_n_schedule(self.sde, kw["predictor_name"], kw.get("N"), kw.get("schedule"))
-        if isinstance(mix, np.ndarray):
-            mix = torch.from_numpy(mix)
-        mix = mix.to(device=self.device, dtype=torch.float32)
-        (mix_n, _), mean, std = normalize_batch(mix)
-        est, nfe = pc_sample(
-            self.sde, self.score_fn, mix_n, generator=generator, noise=noise, **kw
-        )
-        return denormalize_batch(est, mean, std), nfe
+        schedule, denoise, ...)."""
+        kw = self._sampler_kwargs(kwargs)
+        with _device_scope(self.device):
+            (mix_n, _), mean, std = normalize_batch(self._on_device(mix))
+            est, nfe = pc_sample(
+                self.sde, self.score_fn, mix_n, generator=generator, noise=noise, **kw
+            )
+            return denormalize_batch(est, mean, std), nfe
+
+    @torch.no_grad()
+    def separate_masked(self, mix, n_valid, generator: Optional[torch.Generator] = None,
+                        noise: Optional[Dict[str, Tensor]] = None, **kwargs):
+        """``separate`` for zero-padded rows: row b's normalization statistics
+        come from its first ``n_valid[b]`` samples (clamped to [1,
+        n_samples]), and the pad region of its estimate is 0. One padded
+        shape then serves requests of any length up to it."""
+        kw = self._sampler_kwargs(kwargs)
+        with _device_scope(self.device):
+            mix = self._on_device(mix)
+            n_valid = torch.clamp(torch.as_tensor(n_valid, device=self.device).long(), 1, mix.shape[-1])
+            mix_n, mean, std = normalize_batch_masked(mix, n_valid)
+            est, nfe = pc_sample(
+                self.sde, self.score_fn, mix_n, generator=generator, noise=noise, **kw
+            )
+            mask = torch.arange(mix.shape[-1], device=self.device)[None, None, :] < n_valid[:, None, None]
+            return denormalize_batch(est, mean, std) * mask.to(est.dtype), nfe
+
+    def get_pc_sampler(self, predictor_name: str, corrector_name: str, y,
+                       generator: Optional[torch.Generator] = None, N: Optional[int] = None,
+                       minibatch: Optional[int] = None, schedule: Optional[str] = None, **kwargs):
+        """The reference API: ``sampling.pc.get_pc_sampler``'s callable on
+        the already-normalized mixtures y (batch, 1, n_samples), returning
+        (x, nfe). Unlike ``separate`` it takes the sampler's own defaults (snr
+        0.1, the SDE's N), not the config's, as the JAX package does.
+        ``minibatch`` runs the batch in chunks of that many rows, one
+        generator drawing for all, and returns (x, [nfe per chunk]). The
+        callable runs without autograd on the model's device, from any
+        thread; it takes another `generator` by keyword."""
+        _warn_low_n_schedule(self.sde, predictor_name, N, schedule)
+        kwargs = {"eps": self.t_eps, **kwargs}
+        y = self._on_device(y)
+
+        @torch.no_grad()
+        def run(y_part, generator):
+            sampler = get_pc_sampler(predictor_name, corrector_name, self.sde, self.score_fn, y_part,
+                                     N=N, schedule=schedule, **kwargs)
+            with _device_scope(self.device):
+                return sampler(generator=generator)
+
+        if minibatch is None:
+            return lambda generator=generator: run(y, generator)
+
+        def batched_sampler(generator=generator):
+            parts = [run(y[i * minibatch:(i + 1) * minibatch], generator)
+                     for i in range(math.ceil(y.shape[0] / minibatch))]
+            return torch.cat([p[0] for p in parts]), [p[1] for p in parts]
+
+        return batched_sampler

@@ -10,6 +10,10 @@ plus a transpose per leaf:
   flax GroupNorm scale            -> GroupNorm weight
   NIN W/b, Fourier W, biases      -> unchanged
 
+``state_dicts_from_reference`` reads a reference Lightning checkpoint
+(``score_model.*`` keys in the port's own layout, and the EMA shadow list
+``ema.shadow_params``) into the port's state dict, raw and EMA.
+
 ``train_state_from_jax`` carries a whole JAX ``TrainState`` across: the
 parameters, the EMA shadow and its count, Adam's moments and count,
 ``optax.MultiSteps``'s accumulated gradient and counters, and AutoClip's
@@ -23,7 +27,7 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax", "train_state_from_jax"]
+__all__ = ["state_dict_from_jax", "state_dicts_from_reference", "train_state_from_jax"]
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
@@ -71,6 +75,34 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             np.array(arr, np.float32, order="C")
         )
     return out
+
+
+def _reference_trainable_keys(state_dict: Mapping[str, Any]):
+    """The keys ``ema.shadow_params`` runs over: the reference's trainable
+    parameters in ``state_dict`` order, which leaves out the STFT window
+    buffers and the frozen Fourier projection ``all_modules.0.W`` (the
+    JAX package's ``convert_ema_backbone``)."""
+    return [k for k in state_dict if ".stft" not in k and not k.endswith("all_modules.0.W")]
+
+
+def state_dicts_from_reference(ckpt: Mapping[str, Any], prefix: str = "score_model."):
+    """A reference Lightning checkpoint (``state_dict``, optionally ``ema``)
+    -> (raw, EMA or None) state dicts of the port's ``ScoreModelNCSNpp``.
+    The EMA one takes ``all_modules.0.W``, which is not averaged, raw."""
+    sd = ckpt["state_dict"]
+    raw = {k[len(prefix):]: torch.as_tensor(v, dtype=torch.float32) for k, v in sd.items()
+           if k.startswith(prefix) and ".stft" not in k}
+    shadow = (ckpt.get("ema") or {}).get("shadow_params")
+    if shadow is None:
+        return raw, None
+    keys = _reference_trainable_keys(sd)
+    if len(keys) != len(shadow):
+        raise ValueError(f"EMA shadow list has {len(shadow)} entries but "
+                         f"{len(keys)} trainable parameters were found")
+    ema = dict(raw)
+    ema.update({k[len(prefix):]: torch.as_tensor(v, dtype=torch.float32)
+                for k, v in zip(keys, shadow) if k.startswith(prefix)})
+    return raw, ema
 
 
 def _find_adam(node):

@@ -1,8 +1,8 @@
 from .correctors import CORRECTORS
-from .pc import make_timesteps, pc_sample
+from .pc import get_pc_sampler, make_timesteps, ode_sample, pc_sample
 from .predictors import PREDICTORS, data_prediction, ddim_transition
 
 __all__ = [
-    "CORRECTORS", "PREDICTORS", "data_prediction", "ddim_transition",
-    "make_timesteps", "pc_sample",
+    "CORRECTORS", "PREDICTORS", "data_prediction", "ddim_transition", "get_pc_sampler",
+    "make_timesteps", "ode_sample", "pc_sample",
 ]

@@ -1,6 +1,6 @@
 """Score-matching training losses, with the PIT variants and the init hacks.
 
-Counterpart of ``diffsep_tpu/train/losses.py:53-65, 115-530``. As there,
+Counterpart of ``diffsep_tpu/train/losses.py:53-530``. As there,
 every loss calls the score network once: the network input of each PIT
 loss does not depend on the permutation, so the permutation minimum acts
 on closed-form whitened targets, and the init hacks 5/6/7 select per
@@ -26,6 +26,7 @@ from __future__ import annotations
 import itertools
 from typing import Callable, Mapping, Optional
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -85,6 +86,38 @@ def normalize_batch(mix: Tensor, tgt: Optional[Tensor] = None):
 
 def denormalize_batch(x: Tensor, mean: Tensor, std: Tensor) -> Tensor:
     return x * std + mean
+
+
+def normalize_rows_host(rows, padded: int):
+    """The serving rule on the host (numpy): each (1, n) signal normalized
+    on its true length with ``normalize_batch``'s statistics (Bessel std,
+    1e-5 clamp), then zero-padded to ``padded``. Padding first would fold
+    the zero tail into the statistics. Returns (padded rows, means, stds);
+    a one-sample row gets std 1 (its Bessel std is NaN)."""
+    out, means, stds = [], [], []
+    for m in rows:
+        n = m.shape[-1]
+        mean = float(np.mean(m)) if n else 0.0
+        std = max(float(np.std(m, ddof=1)), 1e-5) if n > 1 else 1.0
+        out.append(np.pad(((m - mean) / std).astype(np.float32), ((0, 0), (0, padded - n))))
+        means.append(mean)
+        stds.append(std)
+    return out, means, stds
+
+
+def normalize_batch_masked(mix: Tensor, n_valid: Tensor):
+    """``normalize_batch`` for zero-padded rows: each row's mean and std come
+    from its first ``n_valid[b]`` samples, and the pad region of the output
+    is 0. ``n_valid`` is clamped to [1, n_samples]. Returns (mix, mean,
+    std)."""
+    n_valid = torch.clamp(n_valid.to(mix.device), 1, mix.shape[-1])
+    idx = torch.arange(mix.shape[-1], device=mix.device)
+    mask = (idx[None, None, :] < n_valid[:, None, None]).to(mix.dtype)
+    n = n_valid.to(mix.dtype).reshape(-1, 1, 1) * mix.shape[1]
+    mean = (mix * mask).sum(dim=(1, 2), keepdim=True) / n
+    var = ((mix - mean) ** 2 * mask).sum(dim=(1, 2), keepdim=True) / torch.clamp(n - 1.0, min=1.0)
+    std = torch.clamp(torch.sqrt(var), min=1e-5)
+    return (mix - mean) / std * mask, mean, std
 
 
 def _gather_sources(x: Tensor, idx: Tensor) -> Tensor:

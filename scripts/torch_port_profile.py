@@ -2,7 +2,7 @@
 """Device-time breakdown of the PyTorch port (diffsep_tpu_torch) on one GPU:
 flagship score evaluations, or flagship training micro-steps.
 
-    python3 scripts/torch_port_profile.py [--train] [--report PATH]
+    python3 scripts/torch_port_profile.py [--train | --serve] [--report PATH]
 
 Without --train, the flagship DiffSepModel (NCSN++ nf=128, bf16, seeded
 random weights) evaluates its score on the smoke run's batch
@@ -25,11 +25,26 @@ apart; the rest of a step is clipping, the optimizer and the EMA. It also
 gives the host's time to enqueue the forward and the backward, each from an
 idle card, and the host's time by op.
 
+With --serve, the serving engine (``cli.serve.SeparationEngine`` over the
+flagship, batch chip_smoke.HTTP_BATCH, 1 s buckets, reverse_diffusion +
+ald2 at N=chip_smoke.PROD_N) runs SERVE_RUNS micro-batches of 4-5 s
+requests through its depth-1 pipeline (micro-batch k+1 dispatched before k
+is finalized), first unprofiled (host clock), then under torch.profiler.
+It prints, per micro-batch, the host time in the dispatch and in the
+finalize, whether the card was still busy when the dispatch returned, and
+the calls inside each dispatch and each finalize that wait on the card
+(stream, device and event synchronizes, blocking copies, scalar reads): a
+dispatch that waits keeps micro-batch k+1's enqueueing from overlapping
+k's device time, and a finalize must wait (its copy to the host). It also
+gives the device's busy time per micro-batch against the host's
+(unprofiled), and the idle share 1 - busy / host.
+
 With --report it writes every kernel's row to PATH as JSON.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import subprocess
 import sys
@@ -41,10 +56,14 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import FS, SERVE_BATCH, SERVE_SECONDS, TRAIN_BATCH  # noqa: E402
+from chip_smoke import FS, HTTP_BATCH, PROD_N, SERVE_BATCH, SERVE_SECONDS, TRAIN_BATCH  # noqa: E402
 
 EVALS = 3
 WARMUP, STEPS = 2, 4  # training micro-steps (an even count: whole optimizer steps)
+SERVE_RUNS = 3  # pipelined serving micro-batches
+# host calls that wait on the card (torch.profiler's names)
+WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy",
+         "aten::_local_scalar_dense")
 # kernel name fragments of the groups the training breakdown sums
 GROUPS = (("hand conv3x3", ("conv3x3",)), ("hand FIR", ("fir2x",)), ("cuDNN conv backward", ("dgrad", "wgrad")))
 
@@ -235,11 +254,117 @@ def profile_train(dev, card):
     return report
 
 
+def busy_us(intervals):
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, -np.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def profile_serve(dev, card):
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from diffsep_tpu_torch.cli.serve import SeparationEngine
+    from diffsep_tpu_torch.model import DiffSepModel
+
+    model = DiffSepModel(device=dev, seed=0)
+    engine = SeparationEngine(model, batch=HTTP_BATCH, bucket_s=1.0, sampler_kwargs={"N": PROD_N})
+    rng = np.random.default_rng(0)
+    mixes = [(0.1 * rng.standard_normal((1, SERVE_SECONDS * FS - int(rng.integers(0, FS))))).astype(np.float32)
+             for _ in range(HTTP_BATCH * SERVE_RUNS)]  # one bucket: SERVE_RUNS micro-batches
+    engine._run_bucket(mixes[:HTTP_BATCH])  # warm-up: kernel build and load, allocator
+    torch.cuda.synchronize()
+
+    # the engine's own pipeline, its two steps timed and marked for the trace
+    dispatch, finalize, runs = engine._dispatch_bucket, engine._finalize_bucket, []
+
+    def timed_dispatch(rows):
+        t0 = time.perf_counter()
+        with record_function(f"dispatch {len(runs)}"):
+            handle = dispatch(rows)
+        runs.append(dict(dispatch_ms=(time.perf_counter() - t0) * 1e3,
+                         card_busy=not torch.cuda.current_stream(dev).query()))
+        return handle, len(runs) - 1
+
+    def timed_finalize(handle):
+        handle, k = handle
+        t0 = time.perf_counter()
+        with record_function(f"finalize {k}"):
+            out = finalize(handle)
+        runs[k]["finalize_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    engine._dispatch_bucket, engine._finalize_bucket = timed_dispatch, timed_finalize
+
+    def pipeline():
+        """Per micro-batch: host ms in the dispatch, the card busy at its
+        return, host ms in the finalize."""
+        runs.clear()
+        for _, _, err, *_ in engine.pipeline(mixes, lambda m: m):
+            if err is not None:
+                raise err
+        return list(runs)
+
+    t0 = time.perf_counter()
+    runs_unprofiled = pipeline()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prof_runs = pipeline()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    events = list(prof.events())
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def annotation(name):  # the ranges above, which the profiler mirrors on the device's timeline
+        return name.split(" ")[0] in ("dispatch", "finalize")
+
+    # the finalizes copy to the host, so they must wait: they show that the
+    # waits are seen
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                    if e.device_type != cuda and annotation(e.name))
+    waits = {name: collections.Counter() for *_, name in ranges}
+    for e in events:
+        if e.device_type != cuda and e.name in WAITS:
+            for a, b, name in ranges:
+                if a <= e.time_range.start <= b:
+                    waits[name][e.name] += 1
+    busy_ms = busy_us([(e.time_range.start, e.time_range.end) for e in events
+                       if e.device_type == cuda and not annotation(e.name)]) / 1e3 / SERVE_RUNS
+    host_ms = wall_ms / SERVE_RUNS
+    kernels = [row for row in device_kernels(prof, SERVE_RUNS) if not annotation(row[2])]
+    report = dict(
+        card=card, batch=HTTP_BATCH, bucket_s=SERVE_SECONDS, N=PROD_N, runs=SERVE_RUNS,
+        host_ms_per_run=host_ms, device_busy_ms_per_run=busy_ms, device_idle_share=1.0 - busy_ms / host_ms,
+        launches_per_run=sum(c for _, c, _ in kernels), runs_unprofiled=runs_unprofiled, runs_profiled=prof_runs,
+        profiled_wall_ms=prof_wall_ms, waits={name: dict(c) for name, c in waits.items()},
+        kernels=[dict(ms_per_run=ms, launches_per_run=c, name=name) for ms, c, name in kernels],
+    )
+    print(card)
+    print(f"serving pipeline, {SERVE_RUNS} micro-batches of {HTTP_BATCH} x 4-5 s (the {SERVE_SECONDS} s bucket), "
+          f"reverse_diffusion+ald2 N={PROD_N}, per micro-batch: host {host_ms:.1f} ms (unprofiled), device busy "
+          f"{busy_ms:.1f} ms, idle share {report['device_idle_share']:.3f}, "
+          f"{report['launches_per_run']:.0f} device launches")
+    for label, rows in (("unprofiled", runs_unprofiled), ("profiled", prof_runs)):
+        for k, r in enumerate(rows):
+            print(f"{label} run {k}: dispatch {r['dispatch_ms']:.1f} ms (card {'busy' if r['card_busy'] else 'idle'} "
+                  f"at its return), finalize {r['finalize_ms']:.1f} ms")
+    for name, c in waits.items():
+        print(f"{name}: calls that wait on the card: {dict(c) or 'none'}")
+    print_rows(kernels, "run", top=15)
+    return report
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--train", action="store_true", help="profile training micro-steps instead of evaluations")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true", help="profile training micro-steps instead of evaluations")
+    mode.add_argument("--serve", action="store_true", help="profile the serving engine's pipeline instead")
     ap.add_argument("--report", type=Path, default=None, help="write the breakdown to this JSON file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -252,7 +377,7 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
-    report = profile_train(dev, card) if args.train else profile_eval(dev, card)
+    report = (profile_train if args.train else profile_serve if args.serve else profile_eval)(dev, card)
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1))

@@ -356,3 +356,94 @@ def test_small_model_train_step_on_the_card_matches_the_cpu(dev):
         norm = torch.sqrt(sum((t.double() ** 2).sum() for t in cpu[key])).item()
         err = max((a - b_).abs().max().item() for a, b_ in zip(card[key], cpu[key]))
         assert err <= 1e-3 * norm, (key, err, norm)
+
+
+# --- serving entry points ------------------------------------------------
+SMALL_F32 = {"score_model": {"backbone_args": {
+    "nf": 16, "ch_mult": (1, 2, 2), "num_res_blocks": 1, "attn_resolutions": (16,),
+    "image_size": 64, "dtype": "float32"}, "stft_args": {"n_fft": 126, "hop_length": 32}}}
+# (predictor, corrector, settings): the samplers beyond the production pair
+SAMPLERS = [
+    ("euler_maruyama", "none", {}), ("heun", "none", {}), ("dpmpp", "none", {"schedule": "log"}),
+    ("reverse_diffusion", "langevin", {}), ("reverse_diffusion", "ald", {"corrector_steps": 2}),
+    ("reverse_diffusion", "ald2", {"denoise": False}), ("euler_maruyama", "ald2", {"probability_flow": True}),
+]
+
+
+def _pc_noise(rng, shape, N, corrector_steps=1):
+    def normal(*lead):
+        return torch.from_numpy(rng.standard_normal(lead + shape).astype(np.float32))
+
+    return {"prior": normal(), "corrector": normal(N, corrector_steps), "predictor": normal(N)}
+
+
+@pytest.mark.parametrize("predictor,corrector,settings", SAMPLERS, ids=[f"{p}-{c}" for p, c, _ in SAMPLERS])
+def test_new_samplers_on_the_card_match_the_cpu(dev, predictor, corrector, settings):
+    """The same weights and draws through each sampler on the card (the
+    kernels) and on the CPU (the plain versions), at 1e-3 of the output's
+    scale, the card-vs-CPU bound of the score itself."""
+    from diffsep_tpu_torch.model import DiffSepModel
+    from diffsep_tpu_torch.sampling import pc_sample
+
+    gpu = DiffSepModel(SMALL_F32, device=dev, seed=3)
+    cpu = DiffSepModel(SMALL_F32, device="cpu", seed=3)
+    rng = np.random.default_rng(1)
+    y = torch.from_numpy(rng.standard_normal((2, 1, 2000)).astype(np.float32))
+    N = 3
+    noise = _pc_noise(rng, (2, 2, 2000), N, settings.get("corrector_steps", 1))
+    kw = dict(predictor_name=predictor, corrector_name=corrector, N=N, snr=0.3, noise=noise, **settings)
+    _build.reset_counts()
+    with torch.no_grad():
+        got, nfe = pc_sample(gpu.sde, gpu.score_fn, y.to(dev), **kw)
+        torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)
+        want, _ = pc_sample(cpu.sde, cpu.score_fn, y, **kw)
+    assert launches["conv3x3"] > 0 and launches["conv3x3"] % nfe == 0
+    assert (got.cpu() - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+def test_ode_sample_on_the_card_matches_the_cpu(dev):
+    from diffsep_tpu_torch.model import DiffSepModel
+    from diffsep_tpu_torch.sampling import ode_sample
+
+    gpu = DiffSepModel(SMALL_F32, device=dev, seed=3)
+    cpu = DiffSepModel(SMALL_F32, device="cpu", seed=3)
+    rng = np.random.default_rng(2)
+    y = torch.from_numpy(rng.standard_normal((2, 1, 2000)).astype(np.float32))
+    prior = torch.from_numpy(rng.standard_normal((2, 2, 2000)).astype(np.float32))
+    with torch.no_grad():
+        got, nfe = ode_sample(gpu.sde, gpu.score_fn, y.to(dev), N=2, prior=prior)
+        want, _ = ode_sample(cpu.sde, cpu.score_fn, y, N=2, prior=prior)
+    assert nfe == 9 and (got.cpu() - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+def test_engine_and_http_on_the_card(dev, tmp_path):
+    """The serving engine on the card: micro-batches through the kernels,
+    from the HTTP server's worker thread too (a thread of its own, where
+    grad mode and the current device start from their defaults)."""
+    import urllib.request
+
+    from diffsep_tpu_torch.cli.serve import SeparationEngine
+    from diffsep_tpu_torch.cli.serve_http import HTTPSeparationServer
+    from diffsep_tpu_torch.data.audio_io import load_wav, load_wav_bytes, save_wav, wav_to_bytes
+    from diffsep_tpu_torch.model import DiffSepModel
+
+    model = DiffSepModel(SMALL_F32, device=dev, seed=3)
+    eng = SeparationEngine(model, batch=2, sampler_kwargs={"N": 2})
+    rng = np.random.default_rng(3)
+    paths = []
+    for i, n in enumerate((3000, 9000, 8500)):
+        paths.append(tmp_path / f"m{i}.wav")
+        save_wav(paths[-1], 0.1 * rng.standard_normal((1, n)).astype(np.float32), 8000)
+    _build.reset_counts()
+    assert all(ok for _, ok, _ in eng.process(paths, tmp_path / "out"))
+    assert _build.launch_counts["conv3x3"] > 0 and eng.n_req == 2
+    for p in paths:
+        wav, _ = load_wav(tmp_path / "out" / "s1" / p.name)
+        assert wav.shape == load_wav(p)[0].shape and np.isfinite(wav).all()
+    body = wav_to_bytes(0.1 * rng.standard_normal((1, 4000)).astype(np.float32), 8000)
+    with HTTPSeparationServer(eng, port=0) as srv:
+        req = urllib.request.Request(f"http://127.0.0.1:{srv.port}/v1/separate", data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            est, sr = load_wav_bytes(resp.read())
+    assert sr == 8000 and est.shape == (2, 4000) and np.isfinite(est).all()

@@ -30,4 +30,6 @@ def test_no_jax_imports(path):
 def test_scan_covers_the_package():
     assert len(FILES) > 15 and (ROOT / "chip_smoke.py").exists()
     assert {p.name for p in FILES} >= {"torch_port_profile.py", "torch_port_conv_plans.py",
-                                       "torch_port_fir_plans.py", "train.py", "loop.py"}
+                                       "torch_port_fir_plans.py", "train.py", "loop.py", "serve.py",
+                                       "serve_http.py", "loading.py", "eval_common.py", "streaming.py",
+                                       "separate.py", "pc.py", "predictors.py", "correctors.py"}
