@@ -46,7 +46,23 @@ Phases, each of which fails the run on any error:
      launch count. Every kernel shape of these runs that phases 3 and 6
      did not check is held against its plain version in bf16. Last, each
      new sampler on the nf=32 float32 model of phase 4, card against CPU
-     with the same draws, within 1e-3 of scale.
+     with the same draws, within 1e-3 of scale;
+  8. enhancement: the noise-reduction recipe (PriorMixSDE, nf=128, bf16,
+     batch 4 x 3 s at 16 kHz, accumulate 4, init hack 4) trains through
+     cli.train.main on a seeded synthetic VCTK-DEMAND folder for
+     ENH_WARMUP + ENH_TIMED micro-steps, validates once (val/si_sdr,
+     val/pesq), writes a checkpoint and scores the test split (test=true);
+     then cli.evaluate --enhance --test --save-n 0 and cli.separate (16 kHz
+     files) on its run dir. Every loss must be finite, every micro-step
+     must launch TRAIN_PER_STEP kernels and every other run PER_EVAL x its
+     evaluations, the result JSON must have the JAX CLI's schema with
+     finite SI-SDR and STOI; PESQ failures are counted. Every kernel shape
+     of a micro-step is held against its plain version and timed, every
+     other new one held untimed; the FIR down's backward at odd sizes and
+     the resampling calls no kernel serves (run plain on the card) are
+     held against their plain versions; and PriorMixSDE sampling
+     (reverse_diffusion + ald2, ddim + none) on the nf=32 float32 model,
+     card against CPU with the same draws, within 1e-3 of scale.
 
 The last lines are the `{"kernels": [...]}` summary, then
 `{"ok": true, "device": {...}}`. With --report, every result (per shape,
@@ -100,6 +116,21 @@ SAMPLER_CASES = [  # (label, predictor or "ode", corrector, settings)
     ("reverse_diffusion+ald", "reverse_diffusion", "ald", {}),
     ("reverse_diffusion+ald2 denoise=False", "reverse_diffusion", "ald2", {"denoise": False}),
     ("ode_sample rk4", "ode", None, {}),
+]
+# enhancement (phase 8): synthetic VCTK-DEMAND files (32 train + 4 val
+# after the recipe's 90/10 split, so that every micro-step has the batch of
+# 4; test; the ones cli.separate enhances), the recipe's batch and the
+# micro-steps around the timing (2 optimizer steps at accumulation 4)
+ENH_FS, ENH_TRAIN, ENH_TEST, ENH_SEP = 16000, 36, 4, 2
+ENH_BATCH, ENH_WARMUP, ENH_TIMED = 4, 2, 6
+RECORD_KEYS = {"batch_idx", "si_sdr", "si_sir", "si_sar", "pesq", "stoi", "nfe", "runtime", "len_s"}
+# odd-sized FIR downs whose backward is the pads-(2, 2) up (repair F1), and
+# resampling calls that no kernel serves, run plain on the card (F2)
+ODD_FIR_SHAPES = [(1, 7, 10, 8), (1, 8, 9, 8), (2, 63, 95, 64), (1, 127, 129, 6)]
+PLAIN_RESAMPLE_CASES = [  # (label, up, kernel, factor, data_format, shape)
+    ("up factor 4, [1,3,3,1]", True, [1, 3, 3, 1], 4, "NHWC", (2, 16, 24, 32)),
+    ("down 2-D kernel", False, [[1, 2, 1], [2, 4, 2], [1, 2, 1]], 2, "NHWC", (2, 32, 48, 16)),
+    ("up NCHW", True, [1, 3, 3, 1], 2, "NCHW", (2, 16, 32, 24)),
 ]
 KERNELS = {
     "conv3x3": dict(source="diffsep_tpu_torch/csrc/conv3x3.cu",
@@ -304,6 +335,47 @@ def loss_and_grads(model, draws, mix, tgt):
     return loss.item(), grads
 
 
+def counting_train_step(per_step):
+    """A stand-in for ``DiffSepModel.make_train_step`` whose train step
+    appends each micro-step's launches (all and backward), kernel shapes,
+    batch shape and the peak memory after it to ``per_step``."""
+    import torch
+
+    from diffsep_tpu_torch.model import DiffSepModel
+    from diffsep_tpu_torch.ops import _build
+
+    make_train_step = DiffSepModel.make_train_step
+
+    def counted_train_step(self, seed):
+        train_step = make_train_step(self, seed)
+
+        def run(state, mix, target, *args, **kwargs):
+            before = [collections.Counter(c) for c in
+                      (_build.launch_counts, _build.backward_counts, _build.launch_shapes)]
+            metrics = train_step(state, mix, target, *args, **kwargs)
+            after = (_build.launch_counts, _build.backward_counts, _build.launch_shapes)
+            launches, backward, shapes = (collections.Counter(a) - b for a, b in zip(after, before))
+            per_step.append(dict(launches=dict(launches), backward=dict(backward), shapes=shapes,
+                                 batch=list(mix.shape), peak_gib=torch.cuda.max_memory_allocated() / 2**30))
+            return metrics
+
+        return run
+
+    return counted_train_step
+
+
+def train_speed(run_dir, warmup, timed, batch):
+    """ms per micro-step, micro-steps/s and samples/s of a run of cli.train:
+    the host clock from the start of micro-step ``warmup + 1`` to the
+    synchronize that ends the epoch (train_log.jsonl); and the log's rows."""
+    records = [json.loads(line) for line in (Path(run_dir) / "train_log.jsonl").read_text().splitlines()]
+    rows = [r for r in records if "step" in r]
+    start = next(r["start_s"] for r in rows if r["step"] == warmup + 1)
+    end = [r["synced_s"] for r in records if "synced_s" in r][-1]
+    ms = (end - start) * 1e3 / timed
+    return dict(ms_per_micro_step=ms, micro_steps_per_s=1e3 / ms, samples_per_s=batch * 1e3 / ms), rows
+
+
 def train_phase(dev, card, cycles_per_ms, rng, tmp, extra_overrides=()):
     """Phase 6: the recipe trains through its entry point, in the directory
     ``tmp``; see the module docstring. ``extra_overrides`` go to the entry
@@ -322,24 +394,6 @@ def train_phase(dev, card, cycles_per_ms, rng, tmp, extra_overrides=()):
     out = {}
     steps = TRAIN_WARMUP + TRAIN_TIMED
     per_step = []
-    make_train_step = DiffSepModel.make_train_step
-
-    def counted_train_step(self, seed):
-        """The train step, recording each micro-step's launches (all and
-        backward), its kernel shapes and the peak memory after it."""
-        train_step = make_train_step(self, seed)
-
-        def run(state, mix, target, *args, **kwargs):
-            before = [collections.Counter(c) for c in
-                      (_build.launch_counts, _build.backward_counts, _build.launch_shapes)]
-            metrics = train_step(state, mix, target, *args, **kwargs)
-            after = (_build.launch_counts, _build.backward_counts, _build.launch_shapes)
-            launches, backward, shapes = (collections.Counter(a) - b for a, b in zip(after, before))
-            per_step.append(dict(launches=dict(launches), backward=dict(backward), shapes=shapes,
-                                 batch=list(mix.shape), peak_gib=torch.cuda.max_memory_allocated() / 2**30))
-            return metrics
-
-        return run
 
     data = write_wsj0_mix(Path(tmp) / "wsj0_mix", {"train": 2 * TRAIN_BATCH, "val": 5},
                           seconds=SERVE_SECONDS, fs=FS, seed=0)
@@ -351,7 +405,7 @@ def train_phase(dev, card, cycles_per_ms, rng, tmp, extra_overrides=()):
     torch.cuda.reset_peak_memory_stats()
     _build.reset_counts()
     t0 = time.perf_counter()
-    with mock.patch.object(DiffSepModel, "make_train_step", counted_train_step):
+    with mock.patch.object(DiffSepModel, "make_train_step", counting_train_step(per_step)):
         state = train_cli.main(overrides)
     torch.cuda.synchronize()
     out["run_s"] = time.perf_counter() - t0
@@ -359,20 +413,14 @@ def train_phase(dev, card, cycles_per_ms, rng, tmp, extra_overrides=()):
     out["backward_launches"] = dict(_build.backward_counts)
     run_dir = next(Path(tmp, "exp").glob("*/*/train_log.jsonl")).parent
     out["run_dir"] = str(run_dir)
-    records = [json.loads(line) for line in (run_dir / "train_log.jsonl").read_text().splitlines()]
     index = json.loads((run_dir / "checkpoints" / "index.json").read_text())
     val = index[str(steps)]
     assert state.step == steps and len(per_step) == steps, (state.step, len(per_step))
 
-    # speed: host clock from the start of the first timed micro-step to the
-    # synchronize that ends the last one
-    rows = [r for r in records if "step" in r]
-    start = next(r["start_s"] for r in rows if r["step"] == TRAIN_WARMUP + 1)
-    end = [r["synced_s"] for r in records if "synced_s" in r][-1]
-    ms = (end - start) * 1e3 / TRAIN_TIMED
+    speed, rows = train_speed(run_dir, TRAIN_WARMUP, TRAIN_TIMED, TRAIN_BATCH)
+    ms = speed["ms_per_micro_step"]
     out.update(
-        batch=per_step[0]["batch"], ms_per_micro_step=ms, micro_steps_per_s=1e3 / ms,
-        samples_per_s=TRAIN_BATCH * 1e3 / ms, peak_gib=max(s["peak_gib"] for s in per_step),
+        batch=per_step[0]["batch"], **speed, peak_gib=max(s["peak_gib"] for s in per_step),
         losses=[r["train/score_loss"] for r in rows], grad_norms=[r["grad/norm"] for r in rows],
         validation=val, per_step=[dict(launches=s["launches"], backward=s["backward"]) for s in per_step],
     )
@@ -488,6 +536,284 @@ def train_phase(dev, card, cycles_per_ms, rng, tmp, extra_overrides=()):
     assert all(counts["kernels"][1].get(k, 0) > 0 for k in ("fir_down2x", "fir_up2x")), counts
     assert not counts["plain"][0], counts
     return out
+
+
+def check_odd_fir_backward(dev, seed):
+    """The backward of a FIR down on odd sizes (the up with pads (2, 2) on
+    the odd axis, "direct" variant) on the card against its plain version
+    on the same gradient, float32 and bfloat16."""
+    import torch
+
+    from diffsep_tpu_torch.ops import _build
+    from diffsep_tpu_torch.ops import fir_resample2x as fir_mod
+
+    taps = (0.125, 0.375, 0.375, 0.125)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = []
+    for shape, dtype_name in itertools.product(ODD_FIR_SHAPES, ("float32", "bfloat16")):
+        dtype = getattr(torch, dtype_name)
+        x = torch.randn(shape, generator=g, device=dev).to(dtype).requires_grad_()
+        y = fir_mod.fir_down2x(x, taps)
+        grad = torch.randn(y.shape, generator=g, device=dev).to(dtype)
+        _build.reset_counts()
+        y.backward(grad)
+        torch.cuda.synchronize()
+        counts = dict(_build.backward_counts)
+        extra = (shape[1] % 2, shape[2] % 2)
+        want = fir_mod.fir_up2x_plain(grad, taps[::-1], extra)
+        err = (x.grad.float() - want.float()).abs().max().item()
+        scale = max(1.0, want.float().abs().max().item())
+        plan = fir_mod.plan_fir2x(*grad.shape, dtype, True, True, extra)
+        rows.append(dict(shape=list(shape), dtype=dtype_name, grad_shape=list(x.grad.shape), plan=plan.variant,
+                         backward_launches=counts, max_abs_err=err, tol=TOL[dtype_name] * scale,
+                         ok=err <= TOL[dtype_name] * scale and tuple(x.grad.shape) == shape
+                         and counts == {"fir_up2x": 1}))
+    return rows
+
+
+def check_plain_resampling(dev, seed):
+    """Resampling calls that no kernel serves (another factor, a 2-D filter,
+    NCHW data) run the plain upfirdn2d on the card: float32, against the
+    CPU, and no kernel launches."""
+    import torch
+
+    from diffsep_tpu_torch.ops import _build
+    from diffsep_tpu_torch.ops.resampling import downsample_2d, upsample_2d
+
+    g = torch.Generator().manual_seed(seed)
+    rows = []
+    for label, up, k, factor, fmt, shape in PLAIN_RESAMPLE_CASES:
+        x = torch.randn(shape, generator=g)
+        fn = upsample_2d if up else downsample_2d
+        _build.reset_counts()
+        got = fn(x.to(dev), k, factor=factor, data_format=fmt)
+        torch.cuda.synchronize()
+        launched = dict(_build.launch_counts)
+        want = fn(x, k, factor=factor, data_format=fmt)
+        err = (got.cpu() - want).abs().max().item()
+        scale = max(1.0, want.abs().max().item())
+        rows.append(dict(case=label, shape=list(shape), out_shape=list(got.shape), max_abs_err=err,
+                         tol=TOL["float32"] * scale, launches=launched,
+                         ok=err <= TOL["float32"] * scale and not launched and got.shape == want.shape))
+    return rows
+
+
+def envelope_float64(mix, avg_len):
+    """PriorMixSDE's envelope of ``mix`` (numpy) in float64: 0.5 sqrt of the
+    zero-padded moving average of mix^2, the 1e-4 clamp included."""
+    k, p, n = avg_len, avg_len // 2, mix.shape[-1]
+    cs = np.cumsum(np.pad(mix.astype(np.float64) ** 2, [(0, 0)] * (mix.ndim - 1) + [(p + 1, p)]), axis=-1)
+    win = (cs[..., k:k + n] - cs[..., :n]) / k
+    return 0.5 * np.sqrt(np.maximum(win, 1e-4))
+
+
+def enhance_phase(dev, card, cycles_per_ms, tmp, small_pair, checked):
+    """Phase 8: the enhancement recipe through its entry points; see the
+    module docstring. ``small_pair`` is the model phase's nf=32 float32
+    models (card, CPU), ``checked`` the (kernel, shape, cout) keys earlier
+    phases held against the plain versions in bf16. Returns (report,
+    launches over the phase's main-path runs)."""
+    import logging
+    import shutil
+
+    import torch
+
+    from diffsep_tpu_torch.cli import evaluate as eval_cli
+    from diffsep_tpu_torch.cli import separate as sep_cli
+    from diffsep_tpu_torch.cli import train as train_cli
+    from diffsep_tpu_torch.data.audio_io import load_wav
+    from diffsep_tpu_torch.data.synthetic import write_vctk_demand
+    from diffsep_tpu_torch.model import DiffSepModel
+    from diffsep_tpu_torch.ops import _build
+    from diffsep_tpu_torch.sampling import pc_sample
+    from diffsep_tpu_torch.sde import PriorMixSDE
+
+    out, total, shapes = {}, collections.Counter(), collections.Counter()
+    warned = []  # the package's warnings: PESQ items dropped, validation metrics that failed
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            warned.append(record.getMessage())
+
+    grab = Grab(level=logging.WARNING)
+    logging.getLogger("diffsep_tpu_torch").addHandler(grab)
+
+    def counted(label, want):
+        torch.cuda.synchronize()
+        got = dict(_build.launch_counts)
+        total.update(got)
+        shapes.update(_build.launch_shapes)
+        assert got == want, (label, got, want)
+        return got
+
+    def check_records(path, n_src):
+        records = json.loads(path.read_text())
+        summary = json.loads(path.with_name(path.stem + "_summary.json").read_text())
+        assert records and all(set(r) == RECORD_KEYS for r in records), records[:1]
+        assert set(summary) == RECORD_KEYS | {"number"} and summary["number"] == len(records), summary
+        for r in records:
+            assert len(r["si_sdr"]) == 1 and len(r["si_sdr"][0]) == n_src, r["si_sdr"]  # nested [[...]]
+            assert np.isfinite(r["si_sdr"]).all() and np.isfinite(r["stoi"]).all(), r
+        return records, summary
+
+    data = write_vctk_demand(Path(tmp) / "vctk_demand", ENH_TRAIN, ENH_TEST, fs=ENH_FS, seed=0)
+    steps = ENH_WARMUP + ENH_TIMED
+    overrides = ["experiment=noise-reduction", f"path.datasets.valentini={data}", f"path.exp_root={tmp}/exp_nr",
+                 f"trainer.max_steps={steps}", "trainer.check_val_every_n_epoch=100", "test=true"]
+    log(f"[enhance] python -m diffsep_tpu_torch.cli.train {' '.join(overrides)}")
+    per_step = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(DiffSepModel, "make_train_step", counting_train_step(per_step)):
+        state = train_cli.main(overrides)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    run_dir = next(Path(tmp, "exp_nr").glob("*/*/train_log.jsonl")).parent
+    val = json.loads((run_dir / "checkpoints" / "index.json").read_text())[str(steps)]
+    speed, rows = train_speed(run_dir, ENH_WARMUP, ENH_TIMED, ENH_BATCH)
+    test_records, test_summary = check_records(run_dir / "test_results" / "test.json", 2)
+    assert state.step == steps and len(per_step) == steps, (state.step, len(per_step))
+    assert all(s["batch"] == [ENH_BATCH, 1, 3 * ENH_FS] for s in per_step), [s["batch"] for s in per_step]
+    losses, norms = [r["train/score_loss"] for r in rows], [r["grad/norm"] for r in rows]
+    assert all(np.isfinite(losses)) and all(np.isfinite(norms)), losses
+    want = {k: sum(v) for k, v in TRAIN_PER_STEP.items()}
+    want_bwd = {k: v[1] for k, v in TRAIN_PER_STEP.items() if v[1]}
+    for st in per_step:
+        assert st["launches"] == want and st["backward"] == want_bwd, (st["launches"], st["backward"])
+    pesq_failed = [m for m in warned if "val metric val/pesq failed" in m]
+    assert np.isfinite(val["val/score_loss"]) and np.isfinite(val["val/si_sdr"]), val
+    assert "val/pesq" in val or pesq_failed, (val, warned)
+    # the run's evaluations: the validation's score loss (1 batch), its
+    # separation (N=30: 60) and the test split's
+    evals = 1 + PROD_NFE + sum(r["nfe"] for r in test_records)
+    counted("cli.train", {k: steps * want[k] + v * evals for k, v in PER_EVAL.items()})
+    train_shapes = per_step[-1]["shapes"]
+    out["train"] = dict(
+        run_s=run_s, batch=per_step[0]["batch"], **speed, peak_gib=max(st["peak_gib"] for st in per_step),
+        losses=losses, grad_norms=norms, validation=val,
+        per_step=[dict(launches=st["launches"], backward=st["backward"]) for st in per_step],
+        test_summary=test_summary, test_s_per_utterance=float(np.mean([r["runtime"] for r in test_records])))
+    log(f"[enhance] {steps} micro-steps of batch {per_step[0]['batch']} with validation, checkpoint and the "
+        f"test split in {run_s:.1f} s; timed {ENH_TIMED} after {ENH_WARMUP}: {speed['ms_per_micro_step']:.2f} ms "
+        f"per micro-step, {speed['samples_per_s']:.3f} samples/s, peak {out['train']['peak_gib']:.2f} GiB ({card})")
+    for r in rows:
+        log(f"[enhance] micro-step {r['step']}: loss {r['train/score_loss']:.6g} grad norm {r['grad/norm']:.6g}")
+    log(f"[enhance] validation: {val}; launches per micro-step {per_step[-1]['launches']}, of them backward "
+        f"{per_step[-1]['backward']}")
+    log(f"[enhance] test=true: {len(test_records)} utterances, {out['train']['test_s_per_utterance']:.3f} s per "
+        f"utterance (sampler, N={PROD_N}); summary {test_summary}")
+
+    # cli.evaluate --enhance on the run dir
+    eval_out = Path(tmp) / "eval_nr"
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    eval_cli.main([str(run_dir), "--enhance", "--test", "--save-n", "0", "-o", str(eval_out)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    (res_dir,) = eval_out.iterdir()
+    records, summary = check_records(res_dir / "test.json", 1)
+    got = counted("cli.evaluate", launches_of(sum(r["nfe"] for r in records)))
+    out["evaluate"] = dict(seconds=secs, utterances=len(records), dir=res_dir.name, summary=summary, launches=got,
+                           s_per_utterance=float(np.mean([r["runtime"] for r in records])),
+                           wall_s_per_utterance=secs / len(records),
+                           pesq_nan=sum(not np.isfinite(r["pesq"]).all() for r in records))
+    log(f"[enhance] cli.evaluate RUN_DIR --enhance --test --save-n 0: {len(records)} utterances in {secs:.1f} s "
+        f"with loading, {out['evaluate']['s_per_utterance']:.3f} s per utterance in the sampler ({card}); "
+        f"{res_dir.name}; summary {summary}")
+
+    # cli.separate on a folder of 16 kHz noisy files
+    sep_in, sep_out = Path(tmp) / "noisy16k", Path(tmp) / "enhanced"
+    sep_in.mkdir()
+    noisy = sorted((data / "test" / "noisy").iterdir())[:ENH_SEP]
+    for f in noisy:
+        shutil.copy(f, sep_in / f.name)
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    sep_cli.main([str(sep_in), str(sep_out), "--model", str(run_dir)])
+    secs = time.perf_counter() - t0
+    got = counted("cli.separate", launches_of(PROD_NFE, ENH_SEP))
+    for f in noisy:
+        n = load_wav(f)[0].shape[-1]
+        for src in range(2):
+            est, fs = load_wav(sep_out / f"s{src}" / f.name)
+            assert fs == ENH_FS and est.shape == (1, n) and np.isfinite(est).all(), (f.name, est.shape)
+    out["separate"] = dict(files=len(noisy), seconds=secs, launches=got)
+    log(f"[enhance] cli.separate IN OUT --model RUN_DIR: {len(noisy)} files of 16 kHz, speech and noise "
+        f"at their own length, finite, {secs:.1f} s")
+    logging.getLogger("diffsep_tpu_torch").removeHandler(grab)
+    out["warnings"] = warned
+    out["pesq_failures"] = dict(validation=len(pesq_failed), items_dropped=[m for m in warned if "PESQ dropped" in m],
+                                test_nan=sum(not np.isfinite(r["pesq"]).all() for r in test_records),
+                                evaluate_nan=out["evaluate"]["pesq_nan"])
+    log(f"[enhance] PESQ failures: {out['pesq_failures']}")
+
+    # kernels: every shape of a micro-step timed, every other new shape of
+    # the phase's runs held untimed
+    checks = []
+    for i, ((k, shape, cout), cnt) in enumerate(sorted(train_shapes.items(), key=str)):
+        r = check_kernel(k, shape, cout, "bfloat16", dev, 300 + i, cycles_per_ms)
+        r["launches_per_micro_step"] = cnt
+        checks.append(r)
+        log(f"[enhance-kernel] {k} {shape}->{cout} bf16 x{cnt}:{plan_text(r['plan'])} "
+            f"err {r['max_abs_err']:.3g} (tol {r['tol']:.3g}) ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
+            f"lib {r['library_ms']:.4f} bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
+    for i, ((k, shape, cout), cnt) in enumerate(sorted(shapes.items(), key=str)):
+        if (k, shape, cout) in checked or (k, shape, cout) in train_shapes:
+            continue
+        r = check_kernel(k, shape, cout, "bfloat16", dev, 400 + i, None, timed=False)
+        r["launches"] = cnt
+        checks.append(r)
+        log(f"[enhance-kernel] {k} {shape}->{cout} bf16 x{cnt}:{plan_text(r['plan'])} "
+            f"err {r['max_abs_err']:.3g} (tol {r['tol']:.3g}) untimed")
+    out["kernel_checks"] = checks
+    bad = [r for r in checks if not r["ok"]]
+    assert not bad, f"kernel mismatches at enhancement shapes: {bad}"
+
+    out["odd_fir_backward"] = odd = check_odd_fir_backward(dev, 500)
+    for r in odd:
+        log(f"[enhance] FIR down backward {r['shape']} {r['dtype']} -> {r['grad_shape']} ({r['plan']}): "
+            f"err {r['max_abs_err']:.3g} (tol {r['tol']:.3g}), backward launches {r['backward_launches']}")
+    out["plain_resampling"] = plain = check_plain_resampling(dev, 501)
+    for r in plain:
+        log(f"[enhance] plain resampling on the card, {r['case']} {r['shape']} -> {r['out_shape']}: card vs cpu "
+            f"{r['max_abs_err']:.3g} (tol {r['tol']:.3g}), kernel launches {r['launches']}")
+    assert all(r["ok"] for r in odd + plain), [r for r in odd + plain if not r["ok"]]
+
+    # PriorMixSDE on the nf=32 float32 model, card against CPU with the same
+    # draws; and its envelope over 3 s at 16 kHz against float64
+    m_gpu, m_cpu = small_pair
+    rng = np.random.default_rng(8)
+    sde = PriorMixSDE(N=3)
+    b, n, N = 1, ENH_FS, 3
+    y = torch.from_numpy(rng.standard_normal((b, 1, n)).astype(np.float32))
+    prior = {}
+    for label, pred, corr in (("reverse_diffusion+ald2", "reverse_diffusion", "ald2"), ("ddim+none", "ddim", "none")):
+        draw = {k: torch.from_numpy(rng.standard_normal(lead + (b, 2, n)).astype(np.float32))
+                for k, lead in (("prior", ()), ("corrector", (N, 1)), ("predictor", (N,)))}
+        ests = {}
+        for route, m in (("card", m_gpu), ("cpu", m_cpu)):
+            with torch.no_grad():
+                ests[route] = pc_sample(sde, m.score_fn, y.to(m.device), pred, corr, N=N, noise=draw)[0].cpu()
+        scale = ests["cpu"].abs().max().item()
+        prior[label] = dict(scale=scale, card_vs_cpu=(ests["card"] - ests["cpu"]).abs().max().item() / scale)
+        log(f"[enhance] nf=32 f32 PriorMixSDE {label} N={N}: card vs cpu {prior[label]['card_vs_cpu']:.3g} "
+            f"of scale {scale:.3g}")
+    noisy_wav = torch.from_numpy(load_wav(sorted((data / "train" / "noisy").iterdir())[0])[0][None])
+    env64 = torch.from_numpy(envelope_float64(noisy_wav.numpy(), sde.avg_len))
+    env = {route: sde._std_sigma_mix(noisy_wav.to(route)).double().cpu() for route in ("cuda", "cpu")}
+    scale = env64.abs().max().item()
+    prior["envelope"] = {f"{r} f32 vs float64": (v - env64).abs().max().item() / scale for r, v in env.items()}
+    prior["envelope"]["n_samples"] = noisy_wav.shape[-1]
+    log(f"[enhance] PriorMixSDE envelope over {noisy_wav.shape[-1]} samples, f32 cumsum against float64: "
+        f"card {prior['envelope']['cuda f32 vs float64']:.3g}, cpu {prior['envelope']['cpu f32 vs float64']:.3g} "
+        f"of its max")
+    out["prior_mix_check"] = prior
+    assert all(prior[k]["card_vs_cpu"] <= 1e-3 for k in ("reverse_diffusion+ald2", "ddim+none")), prior
+    assert all(v <= 1e-3 for k, v in prior["envelope"].items() if k != "n_samples"), prior
+    out["launches"] = dict(total)
+    return out, dict(total)
 
 
 def percentiles(xs):
@@ -961,12 +1287,17 @@ def main() -> int:
                    if r["dtype"] == "bfloat16"}
         report["serve_entry_points"], entry_counts = serve_entry_phase(
             dev, card, train["run_dir"], tmp, mix, (m_gpu, m_cpu), rng, checked)
+        # 8. the enhancement recipe
+        checked |= {(r["kernel"], tuple(r["shape"]), r["cout"])
+                    for r in report["serve_entry_points"]["kernel_checks"]}
+        report["enhance"], enh_counts = enhance_phase(dev, card, cycles_per_ms, tmp, (m_gpu, m_cpu), checked)
 
     # summary per kernel: the bf16 (serving) times summed over one score
     # evaluation's launches at batch 2, and the bf16 times summed over one
-    # training micro-step's launches (forward and backward) at batch 6;
-    # launches over the main paths: the serving run at N=30, the training
-    # run and the serving entry points
+    # training micro-step's launches (forward and backward) at batch 6 and
+    # at the enhancement recipe's batch 4 x 3 s; launches over the main
+    # paths: the serving run at N=30, the training run, the serving entry
+    # points and the enhancement phase
     serve_counts = serve["reverse_diffusion+ald2 N=30"]["launches"]
     summary = []
     for k, meta in KERNELS.items():
@@ -974,27 +1305,35 @@ def main() -> int:
         bf = [r for r in rows if r["dtype"] == "bfloat16"]
         tr = [r for r in train["kernel_checks"] if r["kernel"] == k]
         entry_rows = [r for r in report["serve_entry_points"]["kernel_checks"] if r["kernel"] == k]
+        enh_rows = [r for r in report["enhance"]["kernel_checks"] if r["kernel"] == k]
+        if k == "fir_up2x":  # the down's backward at odd sizes runs the up kernel
+            enh_rows += report["enhance"]["odd_fir_backward"]
+        enh_tr = [r for r in enh_rows if "launches_per_micro_step" in r]
 
         def per_eval_sum(key):
             return sum(r[key] * r["launches_per_eval"] for r in bf)
 
-        def per_step_sum(key):
-            return sum(r[key] * r["launches_per_micro_step"] for r in tr)
+        def per_step_sum(key, rows=tr):
+            return sum(r[key] * r["launches_per_micro_step"] for r in rows)
 
         summary.append(dict(
             name=k, route="cuda", source=meta["source"], replaces=meta["replaces"],
-            launches=serve_counts[k] + train["launches"][k] + entry_counts[k],
-            max_abs_err=max(r["max_abs_err"] for r in rows + tr + entry_rows),
+            launches=serve_counts[k] + train["launches"][k] + entry_counts[k] + enh_counts[k],
+            max_abs_err=max(r["max_abs_err"] for r in rows + tr + entry_rows + enh_rows),
             ms=per_eval_sum("ms"), plain_ms=per_eval_sum("plain_ms"),
             bound_ms=per_eval_sum("bound_ms"),
             bound_by="operations" if per_eval_sum("ops_ms") >= per_eval_sum("bytes_ms") else "bytes",
             library_ms=per_eval_sum("library_ms"),
             launches_by_path={"serve N=30": serve_counts[k], "train": train["launches"][k],
                               "train backward": train["backward_launches"].get(k, 0),
-                              "serve entry points": entry_counts[k]},
+                              "serve entry points": entry_counts[k], "enhance": enh_counts[k]},
             launches_per_micro_step={"forward": TRAIN_PER_STEP[k][0], "backward": TRAIN_PER_STEP[k][1]},
             train_ms_per_micro_step=per_step_sum("ms"), train_plain_ms=per_step_sum("plain_ms"),
             train_bound_ms=per_step_sum("bound_ms"), train_library_ms=per_step_sum("library_ms"),
+            enhance_train_ms_per_micro_step=per_step_sum("ms", enh_tr),
+            enhance_train_plain_ms=per_step_sum("plain_ms", enh_tr),
+            enhance_train_bound_ms=per_step_sum("bound_ms", enh_tr),
+            enhance_train_library_ms=per_step_sum("library_ms", enh_tr),
         ))
     report["summary"] = summary
     if args.report is not None:

@@ -36,14 +36,16 @@ _REMAP = {
     "models.score_models.ScoreModelNCSNpp": "diffsep_tpu_torch.models.ScoreModelNCSNpp",
     "models.ncsnpp.NCSNpp": "diffsep_tpu_torch.models.NCSNpp",
     "sdes.sdes.MixSDE": "diffsep_tpu_torch.sde.MixSDE",
+    "sdes.sdes.PriorMixSDE": "diffsep_tpu_torch.sde.PriorMixSDE",
+    "sdes.sdes.OUVESDE": "diffsep_tpu_torch.sde.OUVESDE",
+    "sdes.sdes.OUVPSDE": "diffsep_tpu_torch.sde.OUVPSDE",
     "models.losses.SISDRLoss": "diffsep_tpu_torch.models.losses.SISDRLoss",
+    "models.losses.PESQ": "diffsep_tpu_torch.models.losses.PESQ",
     "utils.FixedClipper": "diffsep_tpu_torch.train.clippers.FixedClipper",
     "utils.AutoClipper": "diffsep_tpu_torch.train.clippers.AutoClipper",
     "torch.optim.Adam": "adam",
     "torch.nn.MSELoss": "mse",
 }
-# reference classes of the enhancement recipe, not in the port yet
-_UNPORTED = ("sdes.sdes.PriorMixSDE", "sdes.sdes.OUVESDE", "sdes.sdes.OUVPSDE", "models.losses.PESQ")
 
 
 def _config_from_hparams(hparams) -> Optional[Dict[str, Any]]:
@@ -56,10 +58,6 @@ def _config_from_hparams(hparams) -> Optional[Dict[str, Any]]:
         if isinstance(node, dict):
             out = {}
             for k, v in node.items():
-                if k == "_target_" and v in _UNPORTED:
-                    raise NotImplementedError(
-                        f"{v} is not ported to diffsep_tpu_torch yet (ROADMAP.md, 'Remaining, in "
-                        "order', item 1: PriorMixSDE, sde/ouve.py and PESQ with the enhancement recipe)")
                 out[k] = _REMAP.get(v, v) if k == "_target_" else walk(v)
             return out
         if isinstance(node, (list, tuple)):

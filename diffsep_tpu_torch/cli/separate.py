@@ -59,7 +59,7 @@ def reject_artifact(path: Path) -> None:
     if is_artifact:
         raise NotImplementedError(
             f"{path} is an export artifact: not ported to diffsep_tpu_torch yet (ROADMAP.md, "
-            "'Remaining, in order', item 2: export.py, cli/export_model.py and ArtifactEngine)")
+            "queue 1 item 4, the export artifact: export.py, cli/export_model.py and ArtifactEngine)")
 
 
 def scale_output(mix: np.ndarray, sep: np.ndarray) -> np.ndarray:

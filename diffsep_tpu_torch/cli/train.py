@@ -2,14 +2,19 @@
 
     python -m diffsep_tpu_torch.cli.train experiment=icassp-separation \\
         path.datasets.wsj0_mix=/data/wsj0_mix [trainer.max_steps=N] [...]
+    python -m diffsep_tpu_torch.cli.train experiment=noise-reduction \\
+        path.datasets.valentini=/data/VCTK_DEMAND test=true [...]
 
 Counterpart of ``diffsep_tpu/cli/train.py``: the composed config with
 dotted overrides, the run dir ``<path.exp_root>/<name>/<timestamp>_<overrides>/``,
-the seed, the datamodule by experiment name, ``trainer.resume_from_checkpoint``
-(or the top-level ``resume_from_checkpoint``) and ``load_pretrained``. It
-trains on one CUDA device (``trainer.accelerator: gpu``) unless
-``trainer.accelerator=cpu`` asks for the CPU. The enhancement recipe and
-``test=true`` (evaluation) are not ported yet and raise.
+the seed, the datamodule by experiment name (``enhancement``: VCTK-DEMAND,
+else WSJ0-mix), ``trainer.resume_from_checkpoint`` (or the top-level
+``resume_from_checkpoint``), ``load_pretrained``, and ``test=true``, which
+scores the test split with the EMA weights after training
+(``cli/evaluate.py``: ``<run dir>/test_results/test.json``; with
+``train=false``, freshly initialized weights). It trains on one CUDA device
+(``trainer.accelerator: gpu``) unless ``trainer.accelerator=cpu`` asks for
+the CPU.
 """
 from __future__ import annotations
 
@@ -55,10 +60,6 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     overrides = list(argv if argv is not None else sys.argv[1:])
     cfg = compose(overrides)
-    if cfg.get("test", False):
-        raise NotImplementedError("test=true: evaluation is not ported to diffsep_tpu_torch yet")
-    if cfg.name == "enhancement":
-        raise NotImplementedError("the enhancement recipe is not ported to diffsep_tpu_torch yet")
     trainer_cfg = cfg.get("trainer") or {}
     accelerator = trainer_cfg.get("accelerator", "gpu")
     if accelerator not in DEVICES:
@@ -66,14 +67,15 @@ def main(argv=None):
     if int(trainer_cfg.get("devices", 1)) != 1:
         raise NotImplementedError("diffsep_tpu_torch trains on one device (trainer.devices=1)")
 
-    from ..data.datamodule import WSJ0_mix_Module
+    from ..data.datamodule import Valentini_Module, WSJ0_mix_Module
     from ..model import DiffSepModel
     from ..train.loop import fit
 
     run_dir = make_run_dir(cfg, overrides)
     log.info("run dir: %s", run_dir)
     # pad batch lengths to whole seconds, as the JAX package does
-    dm = WSJ0_mix_Module(cfg, pad_to_multiple=int(cfg.model.fs))
+    module = Valentini_Module if cfg.name == "enhancement" else WSJ0_mix_Module
+    dm = module(cfg, pad_to_multiple=int(cfg.model.fs))
 
     init_params = init_ema = None
     lp = cfg.get("load_pretrained")
@@ -93,6 +95,13 @@ def main(argv=None):
             resume=(trainer_cfg.get("resume_from_checkpoint") or cfg.get("resume_from_checkpoint") or False),
             init_params=init_params, init_ema_params=init_ema,
         )
+    if cfg.get("test", False):
+        from .evaluate import evaluate_datamodule
+
+        if state is None:
+            log.warning("test=true with train=false: evaluating freshly initialized weights")
+            state = model.init_state()
+        evaluate_datamodule(model, state, dm, run_dir / "test_results")
     return state
 
 

@@ -1,6 +1,8 @@
 // Factor-2 FIR resampling of NHWC tensors with a separable 4-tap filter:
 //   down: decimation, upfirdn2d(x, outer(f, f), down=2, pad=(1, 1))
-//   up:   interpolation, upfirdn2d(x, outer(f, f), up=2, pad=(2, 1))
+//   up:   interpolation, upfirdn2d(x, outer(f, f), up=2, pad=(2, 1)), or
+//         with a trailing pad of 2 on an axis ("direct" only): 2 n + 1
+//         outputs there, the adjoint of down on an odd axis
 // computed in f32, stored in the input's type. The taps arrive already
 // flipped into convolution order.
 //
@@ -42,7 +44,9 @@
 //   the vector fastest, so a warp's accesses are contiguous.
 // "direct": the same kernel one channel wide, for what 16-byte accesses
 //   cannot take: C not a multiple of the vector (C = 6, 3), or a base
-//   pointer that is not 16-byte aligned.
+//   pointer that is not 16-byte aligned. It also computes the up with a
+//   trailing pad of 2 on an axis: one more input step there (a zero row or
+//   column past the image), whose odd output is not stored.
 // "tma": bf16, C % 64 == 0. A block of 8 x TW threads owns TW columns x 64
 //   channels (128 bytes) and a strip of rows. One thread issues 4-D TMA
 //   boxes (64 channels x the columns with their halo x 2 input rows for
@@ -64,6 +68,7 @@ struct Args {
   int B, H, W, C, Ho, Wo;
   int up, dtype, variant, rows, cols, stages, threads, smem_bytes;
   int grid[3];
+  int pad[4];  // (y0, y1, x0, x1): (1, 1, 1, 1) down; (2, 1 or 2, 2, 1 or 2) up
   float ky[4], kx[4];
   int device;
 };
@@ -217,13 +222,16 @@ __device__ __forceinline__ void copy_raw(typename Io<T, V>::Raw (&dst)[N], const
 
 // "stream" (V = 16 bytes of T) and "direct" (V = 1). Thread t is (batch,
 // strip, column, vector), the vector fastest; a strip is `rows` steps:
-// output rows for down, input rows (two output rows each) for up.
+// output rows for down, input rows (two output rows each) for up. An up
+// with an odd output extent (direct only) takes one step more on that
+// axis, input row H or column W, which reads as zeros; its odd output row
+// or column lies past the output and is not stored.
 template <typename T, int V, bool UP>
 __global__ void __launch_bounds__(THREADS)
 fir2x_stream_kernel(const T* __restrict__ x, T* __restrict__ out, Shape s, Taps k, int rows, int strips) {
   typedef typename Io<T, V>::Raw Raw;
   constexpr int N = UP ? 3 : 4;  // input columns of a thread
-  const int groups = s.C / V, cols = UP ? s.W : s.Wo, steps = UP ? s.H : s.Ho;
+  const int groups = s.C / V, cols = UP ? (s.Wo + 1) / 2 : s.Wo, steps = UP ? (s.Ho + 1) / 2 : s.Ho;
   unsigned t = blockIdx.x * THREADS + threadIdx.x;
   const int g = t % groups;
   t /= groups;
@@ -268,6 +276,7 @@ fir2x_stream_kernel(const T* __restrict__ x, T* __restrict__ out, Shape s, Taps 
     }
   } else {
     T* o = out + ((size_t)b * s.Ho + 2 * r0) * out_row + (size_t)2 * j * s.C + g * V;
+    const bool odd_col = V > 1 || 2 * j + 1 < s.Wo;  // 16-byte variants: always
     Raw a[N], na[N];
     load_row<T, V, N>(a, x_b, row_stride, r0 - 1, s.H, off, inside);
     load_row<T, V, N>(na, x_b, row_stride, r0, s.H, off, inside);
@@ -279,14 +288,21 @@ fir2x_stream_kernel(const T* __restrict__ x, T* __restrict__ out, Shape s, Taps 
       copy_raw<T, V, N>(a, na);
       if (r + 1 < r1) load_row<T, V, N>(na, x_b, row_stride, r + 2, s.H, off, inside);
       w_up<T, V>(a, k, e2, o2);
+      const bool odd_row = V > 1 || 2 * r + 1 < s.Ho;
       h_up<V>(e0, e1, k.y[0], k.y[2], y);
       Io<T, V>::store(o, y);
-      h_up<V>(o0, o1, k.y[0], k.y[2], y);
-      Io<T, V>::store(o + s.C, y);
-      h_up<V>(e1, e2, k.y[1], k.y[3], y);
-      Io<T, V>::store(o + out_row, y);
-      h_up<V>(o1, o2, k.y[1], k.y[3], y);
-      Io<T, V>::store(o + out_row + s.C, y);
+      if (odd_col) {
+        h_up<V>(o0, o1, k.y[0], k.y[2], y);
+        Io<T, V>::store(o + s.C, y);
+      }
+      if (odd_row) {
+        h_up<V>(e1, e2, k.y[1], k.y[3], y);
+        Io<T, V>::store(o + out_row, y);
+        if (odd_col) {
+          h_up<V>(o1, o2, k.y[1], k.y[3], y);
+          Io<T, V>::store(o + out_row + s.C, y);
+        }
+      }
       assign<V>(e0, e1);
       assign<V>(o0, o1);
       assign<V>(e1, e2);
@@ -416,7 +432,7 @@ enum Variant { DIRECT = 0, STREAM = 1, TMA = 2 };
 
 template <typename T, int V, bool UP>
 cudaError_t launch_stream(const void* x, void* out, const Args& a, const Shape& s, const Taps& k, cudaStream_t stream) {
-  const int steps = UP ? s.H : s.Ho, cols = UP ? s.W : s.Wo;
+  const int steps = UP ? (s.Ho + 1) / 2 : s.Ho, cols = UP ? (s.Wo + 1) / 2 : s.Wo;
   if (a.rows < 1 || s.C % V || a.threads != THREADS) return cudaErrorInvalidValue;
   const int strips = (steps + a.rows - 1) / a.rows;
   const long long threads = (long long)s.B * strips * cols * (s.C / V);
@@ -454,7 +470,14 @@ cudaError_t launch(const void* x, void* out, const Args& a, cudaStream_t stream)
   const Shape s = {a.B, a.H, a.W, a.C, a.Ho, a.Wo};
   const Taps k = {{a.ky[0], a.ky[1], a.ky[2], a.ky[3]}, {a.kx[0], a.kx[1], a.kx[2], a.kx[3]}};
   const bool up = a.up != 0;
-  if (a.Ho != (up ? 2 * a.H : a.H / 2) || a.Wo != (up ? 2 * a.W : a.W / 2)) return cudaErrorInvalidValue;
+  const int* p = a.pad;
+  if (up ? p[0] != 2 || p[2] != 2 || p[1] < 1 || p[1] > 2 || p[3] < 1 || p[3] > 2
+         : p[0] != 1 || p[1] != 1 || p[2] != 1 || p[3] != 1)
+    return cudaErrorInvalidValue;
+  // a trailing pad of 2 (an odd output extent) only in "direct"
+  if ((p[1] == 2 || p[3] == 2) && a.variant != DIRECT) return cudaErrorInvalidValue;
+  if (a.Ho != (up ? 2 * a.H + p[1] - 1 : a.H / 2) || a.Wo != (up ? 2 * a.W + p[3] - 1 : a.W / 2))
+    return cudaErrorInvalidValue;
   if (a.variant != DIRECT && ((uintptr_t)x | (uintptr_t)out) % 16) return cudaErrorMisalignedAddress;
   if (a.variant == TMA && a.dtype == 1)
     return up ? launch_tma<true>(x, out, a, s, k, stream) : launch_tma<false>(x, out, a, s, k, stream);
@@ -477,8 +500,8 @@ cudaError_t launch(const void* x, void* out, const Args& a, cudaStream_t stream)
 
 // x: (B, H, W, C) contiguous; out: (B, Ho, Wo, C). `a` holds the shape, the
 // direction (up: 0 = decimate, 1 = interpolate), dtype (0 = float32,
-// 1 = bfloat16), the plan of ops/fir_resample2x.py:plan_fir2x and the 4 taps
-// per axis in convolution order. Returns the cudaError_t of the launch.
+// 1 = bfloat16), the plan of ops/fir_resample2x.py:plan_fir2x, the pads per
+// axis and the 4 taps per axis in convolution order. Returns the cudaError_t of the launch.
 extern "C" int fir_resample2x_nhwc(const void* x, void* out, const Args* a, void* stream) {
   cudaError_t err = cudaSetDevice(a->device);
   if (err != cudaSuccess) return (int)err;

@@ -1,7 +1,7 @@
-"""The WSJ0-mix datamodule: the config's dataset and loader options per
-split.
+"""The datamodules: the config's dataset and loader options per split.
 
-Counterpart of ``WSJ0_mix_Module`` in ``diffsep_tpu/data/datamodule.py``.
+Counterpart of ``WSJ0_mix_Module`` and ``Valentini_Module`` in
+``diffsep_tpu/data/datamodule.py``.
 """
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ from typing import Optional
 
 from ..config import instantiate
 from .loader import DataLoader
+from .vctk_demand import split_train_val
 
 
 class WSJ0_mix_Module:
@@ -42,3 +43,15 @@ class WSJ0_mix_Module:
 
     def test_dataloader(self):
         return self._get("test")
+
+
+class Valentini_Module(WSJ0_mix_Module):
+    """The enhancement datamodule: the train set split 90/10 into train and
+    val by the config's seed, and the test set; every split is set up at
+    once."""
+
+    def setup(self, splits=None):
+        train = instantiate(self.cfg.datamodule["train"]["dataset"])
+        self.datasets["train"], self.datasets["val"] = split_train_val(
+            train, val_frac=0.1, seed=int(self.cfg.get("seed", 0)))
+        self.datasets["test"] = instantiate(self.cfg.datamodule["test"]["dataset"])

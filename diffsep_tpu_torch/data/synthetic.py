@@ -1,10 +1,13 @@
-"""A seeded synthetic WSJ0-mix folder, for runs where the corpus is absent.
+"""Seeded synthetic corpora, for runs where the real ones are absent.
 
 ``write_wsj0_mix`` writes the layout ``WSJ0_mix`` reads,
 ``2speakers/wav8k/max/{tr,cv}/{mix,s1,s2}/<name>.wav``: each source a sum
 of tone bursts (random pitch, onset and length under a Hann envelope),
-the mixture their sum, 16-bit PCM. It stands in for the real data in the
-smoke run and the tests; it is no benchmark of separation quality.
+the mixture their sum, 16-bit PCM. ``write_vctk_demand`` writes the layout
+``NoisyDataset`` reads, ``{train,test}/{clean,noisy}/<name>.wav``: the
+clean "speech" tone bursts of 1-4 s, the noisy file that plus seeded noise
+at one of a few SNRs. They stand in for the real data in the smoke run and
+the tests; they are no benchmark of separation or enhancement quality.
 """
 from __future__ import annotations
 
@@ -46,4 +49,34 @@ def write_wsj0_mix(root, counts: Dict[str, int], seconds: float = 5.0, fs: int =
             for k, s in enumerate(srcs):
                 save_wav(base / f"s{k + 1}" / name, s[None], fs)
             save_wav(base / "mix" / name, np.sum(srcs, axis=0)[None], fs)
+    return root
+
+
+SNRS_DB = (0.0, 5.0, 10.0, 15.0)
+
+
+def write_vctk_demand(root, n_train: int, n_test: int, fs: int = 16000, seed: int = 0,
+                      seconds=(1.0, 4.0)) -> Path:
+    """Write ``n_train`` and ``n_test`` clean/noisy pairs of a uniform
+    length in ``seconds`` (some shorter than the recipe's 3 s crop, which
+    tiles them) under ``root``; returns ``root``. The noise is white or
+    low-passed white at an SNR of ``SNRS_DB``, and each pair is scaled to a
+    peak of 0.9 so that the 16-bit files do not clip."""
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    for split, count in (("train", n_train), ("test", n_test)):
+        for i in range(count):
+            n = int(rng.integers(int(seconds[0] * fs), int(seconds[1] * fs) + 1))
+            clean = tone_bursts(rng, n, fs, bursts=max(2, n * 3 // fs)).astype(np.float64)
+            noise = rng.standard_normal(n)
+            if rng.uniform() < 0.5:  # low-passed: a 9-tap moving average
+                noise = np.convolve(noise, np.ones(9) / 9, mode="same")
+            snr = SNRS_DB[int(rng.integers(len(SNRS_DB)))]
+            p_clean = max(float(np.mean(clean**2)), 1e-8)
+            noise *= np.sqrt(p_clean / (np.mean(noise**2) * 10 ** (snr / 10)))
+            noisy = clean + noise
+            g = 0.9 / max(np.abs(noisy).max(), np.abs(clean).max())
+            name = f"p{i:03d}_{split}.wav"
+            save_wav(root / split / "clean" / name, (g * clean)[None].astype(np.float32), fs)
+            save_wav(root / split / "noisy" / name, (g * noisy)[None].astype(np.float32), fs)
     return root

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import math
 import warnings
 from typing import Any, Dict, Mapping, Optional
@@ -28,7 +29,7 @@ from .config.compose import instantiate
 from .models.ncsnpp import NCSNpp
 from .models.score_model import ScoreModelNCSNpp
 from .sampling.pc import get_pc_sampler, pc_sample
-from .sde.mixsde import MixSDE
+from .sde import OUVESDE, OUVPSDE, SDE, MixSDE, PriorMixSDE
 from .train import trainer
 from .train.losses import denormalize_batch, normalize_batch, normalize_batch_masked
 
@@ -133,12 +134,21 @@ def build_score_model(cfg: Mapping[str, Any]) -> ScoreModelNCSNpp:
     )
 
 
-def _build_sde(cfg: Mapping[str, Any]) -> MixSDE:
-    args = {k: v for k, v in cfg["sde"].items() if k not in ("_target_", "ndim")}
+_SDES = {cls.__name__: cls for cls in (MixSDE, PriorMixSDE, OUVESDE, OUVPSDE)}
+
+
+def _build_sde(cfg: Mapping[str, Any]) -> SDE:
+    """The SDE its ``_target_`` names (MixSDE by default), with the config's
+    values of its fields; a mixing SDE has n_speakers sources."""
     target = cfg["sde"].get("_target_", "MixSDE")
-    if not target.endswith(".MixSDE") and target != "MixSDE":
+    cls = _SDES.get(target.rpartition(".")[2])
+    if cls is None:
         raise _unsupported("sde", target)
-    return MixSDE(ndim=int(cfg["n_speakers"]), **args)
+    fields = {f.name for f in dataclasses.fields(cls)}
+    args = {k: v for k, v in cfg["sde"].items() if k in fields and k != "ndim"}
+    if "ndim" in fields:
+        args["ndim"] = int(cfg["n_speakers"])
+    return cls(**args)
 
 
 def _optim_config(m: Mapping[str, Any], trainer_cfg: Mapping[str, Any]) -> trainer.OptimConfig:
@@ -172,20 +182,23 @@ def _optim_config(m: Mapping[str, Any], trainer_cfg: Mapping[str, Any]) -> train
 
 
 class DiffSepModel(nn.Module):
-    """Score model + MixSDE + PC sampler on one device, with its training
-    setup.
+    """Score model + SDE (MixSDE, or PriorMixSDE for enhancement) + PC
+    sampler on one device, with its training setup.
 
-    config: a composed config (its ``model`` and ``trainer`` nodes), or
-    overrides of ``FLAGSHIP`` (nested dict). device: where it runs, CUDA
-    unless the caller asks otherwise. seed: the weights are drawn with the
-    JAX package's initializers from this seed; load a state dict to replace
-    them.
+    config: a composed config (its ``model`` and ``trainer`` nodes; the
+    whole tree is kept as ``run_config``), or overrides of ``FLAGSHIP``
+    (nested dict). device: where it runs, CUDA unless the caller asks
+    otherwise. seed: the weights are drawn with the JAX package's
+    initializers from this seed; load a state dict to replace them.
     """
 
     def __init__(self, config: Optional[Mapping[str, Any]] = None, device=None, seed: int = 0):
         super().__init__()
         trainer_cfg: Mapping[str, Any] = {}
-        if config is not None and "model" in config:
+        # the whole composed tree where one is given (evaluation reads its
+        # datamodule node), else None
+        self.run_config = config if config is not None and "model" in config else None
+        if self.run_config is not None:
             trainer_cfg = config.get("trainer") or {}
             config = config["model"]
         self.config = merge_config(FLAGSHIP, config)

@@ -1,21 +1,26 @@
-"""Separation metrics: SI-SDR, its permutation-invariant form, and the
-SI-SDR loss used as the validation metric ``val/si_sdr``.
+"""Validation metrics: SI-SDR, its permutation-invariant form, the SI-SDR
+loss used as ``val/si_sdr``, and PESQ, the enhancement recipe's
+``val/pesq``.
 
-Counterpart of ``si_sdr``, ``si_sdr_pit`` and ``SISDRLoss`` in
+Counterpart of ``si_sdr``, ``si_sdr_pit``, ``SISDRLoss`` and ``PESQ`` in
 ``diffsep_tpu/models/losses.py``: every permutation of the sources is
-scored (exact for the 2 or 3 sources of the datasets). PESQ comes with the
-enhancement recipe.
+scored (exact for the 2 or 3 sources of the datasets); PESQ runs on the
+host, in numpy (``pesq_native.py``).
 """
 from __future__ import annotations
 
 import itertools
+import logging
 from typing import Optional
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
 
-__all__ = ["si_sdr", "si_sdr_pit", "SISDRLoss"]
+__all__ = ["si_sdr", "si_sdr_pit", "SISDRLoss", "PESQ"]
+
+log = logging.getLogger(__name__)
 
 _EPS = 1e-8
 
@@ -81,3 +86,41 @@ class SISDRLoss:
         if self.reduction == "sum":
             return neg.sum()
         return neg
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().float().cpu().numpy() if isinstance(x, Tensor) else np.asarray(x)
+
+
+class PESQ:
+    """PESQ of the first channel (the clean speech of the enhancement
+    target) of the first ``max_items`` batch entries, averaged over the
+    items that score: one short or silent clip does not discard the batch,
+    the items dropped are logged, and a batch where none scores raises."""
+
+    def __init__(self, mode: str = "wb", fs: int = 16000, max_items: int = 4):
+        self.mode = mode
+        self.fs = fs
+        self.max_items = max_items
+
+    def __call__(self, est, ref) -> float:
+        from .pesq_native import get_pesq
+
+        _pesq = get_pesq()
+        est, ref = _host(est), _host(ref)
+        if est.ndim != 3 or ref.ndim != 3:
+            raise ValueError(
+                f"PESQ expects (batch, channels, samples) arrays, got est{est.shape} / ref{ref.shape}")
+        n = min(self.max_items, est.shape[0])
+        vals, last_err = [], None
+        for i in range(n):
+            try:
+                vals.append(_pesq(self.fs, ref[i, 0], est[i, 0], self.mode))
+            except Exception as e:  # noqa: BLE001 - scored per item, as in the JAX package
+                last_err = e
+        if not vals:
+            raise last_err if last_err is not None else ValueError("empty batch")
+        if len(vals) < n:
+            log.warning("PESQ dropped %d/%d items (last error: %s); metric is the mean of the surviving %d",
+                        n - len(vals), n, last_err, len(vals))
+        return float(np.mean(vals))

@@ -31,10 +31,10 @@ the other kernel, as ``_pallas_bwd`` (``diffsep_tpu/ops/upfirdn2d.py:157-186``)
 routes it: upfirdn2d(g, flip(k), up=down, down=up) with the pads derived
 there. For k = 4 that is
   * d fir_up2x(x, f)   = fir_down2x(g, f reversed), pads (1, 1) at every size;
-  * d fir_down2x(x, f) = fir_up2x(g, f reversed), pads (2, 1) where H and W
-    are even. An odd H or W needs (2, 2) on that axis, which neither kernel
-    computes, so that backward raises (NCSN++ pads its frames to a multiple
-    of 64 and never trains at such a size).
+  * d fir_down2x(x, f) = fir_up2x(g, f reversed), pads (2, 1) on an even
+    axis and (2, 2) on an odd one, whose 2 m + 1 outputs the "direct"
+    variant computes (NCSN++'s own downs are all even: it pads its frames
+    to a multiple of 64).
 A backward launch counts as a launch of the kernel it runs, and as a
 backward one (``_build.backward_counts``).
 """
@@ -122,9 +122,12 @@ def _tma(b: int, steps: int, cols: int, c: int, up: bool, tw: int = TMA_COLS,
 
 @functools.lru_cache(maxsize=1024)  # a pure function of the shape, asked on every call
 def plan_fir2x(b: int, h: int, w: int, c: int, dtype: torch.dtype = torch.bfloat16,
-               up: bool = False, aligned: bool = True) -> FirPlan:
+               up: bool = False, aligned: bool = True, extra: Tuple[int, int] = (0, 0)) -> FirPlan:
     """The plan for x (b, h, w, c) in ``dtype``, resampled up or down;
-    ``aligned``: the input's base address is a multiple of 16 bytes.
+    ``aligned``: the input's base address is a multiple of 16 bytes;
+    ``extra``: the up's extra output row and column (the adjoint of a down
+    on an odd axis), which only "direct" computes, one more input step on
+    that axis.
 
     The rules follow per-shape timings of every variant at several strips
     and tiles (scripts/torch_port_fir_plans.py): "tma" beats "stream" by
@@ -134,6 +137,8 @@ def plan_fir2x(b: int, h: int, w: int, c: int, dtype: torch.dtype = torch.bfloat
     # the rows a strip walks and the columns a thread or tile owns: input
     # ones for up (each feeds a 2 x 2 output quad), output ones for down
     steps, cols = (h, w) if up else (h // 2, w // 2)
+    if any(extra):
+        return _stream("direct", 1, b, steps + extra[0], cols + extra[1], c)
     vec = 16 // (4 if dtype == torch.float32 else 2)
     if not aligned or c % vec:
         return _stream("direct", 1, b, steps, cols, c)
@@ -151,8 +156,14 @@ def fir_down2x_plain(x: Tensor, taps: Sequence[float]) -> Tensor:
     return upfirdn2d(x, _kernel2d(taps), down=2, pad=_PADS[False], data_format="NHWC")
 
 
-def fir_up2x_plain(x: Tensor, taps: Sequence[float]) -> Tensor:
-    return upfirdn2d(x, _kernel2d(taps), up=2, pad=_PADS[True], data_format="NHWC")
+def _up_pads(extra: Tuple[int, int]) -> Tuple[int, int, int, int]:
+    """(y0, y1, x0, x1) of an up whose output has ``extra`` (0 or 1) more
+    rows and columns than 2 H x 2 W."""
+    return (2, 1 + extra[0], 2, 1 + extra[1])
+
+
+def fir_up2x_plain(x: Tensor, taps: Sequence[float], extra: Tuple[int, int] = (0, 0)) -> Tensor:
+    return upfirdn2d(x, _kernel2d(taps), up=2, pad=_up_pads(extra), data_format="NHWC")
 
 
 class _Args(ctypes.Structure):
@@ -160,24 +171,25 @@ class _Args(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "B", "H", "W", "C", "Ho", "Wo", "up", "dtype", "variant", "rows", "cols", "stages", "threads",
-        "smem_bytes")] + [("grid", ctypes.c_int * 3), ("ky", ctypes.c_float * 4), ("kx", ctypes.c_float * 4),
-                          ("device", ctypes.c_int)]
+        "smem_bytes")] + [("grid", ctypes.c_int * 3), ("pad", ctypes.c_int * 4), ("ky", ctypes.c_float * 4),
+                          ("kx", ctypes.c_float * 4), ("device", ctypes.c_int)]
 
 
 @functools.lru_cache(maxsize=1024)
 def _call(shape: Tuple[int, ...], dtype: torch.dtype, up: bool, taps: Tuple[float, ...], device: int,
-          aligned: bool, plan: Optional[FirPlan] = None):
+          aligned: bool, plan: Optional[FirPlan] = None, extra: Tuple[int, int] = (0, 0)):
     """The output shape and the C arguments of one call, made once per
-    (shape, dtype, direction, taps, device, alignment) for the plan of
-    ``plan_fir2x`` or the one given."""
+    (shape, dtype, direction, taps, device, alignment, extra) for the plan
+    of ``plan_fir2x`` or the one given."""
     b, h, w, c = shape
-    plan = plan or plan_fir2x(b, h, w, c, dtype, up, aligned)
+    plan = plan or plan_fir2x(b, h, w, c, dtype, up, aligned, extra)
+    pads = _up_pads(extra) if up else _PADS[False] * 2
     factors = (2, 1) if up else (1, 2)
-    ho, wo = (out_size(n, *factors, *_PADS[up], 4) for n in (h, w))
+    ho, wo = (out_size(n, *factors, *pads[2 * i:2 * i + 2], 4) for i, n in enumerate((h, w)))
     kf = [float(t) for t in taps[::-1]]  # convolution = correlation with flipped taps
     args = _Args(b, h, w, c, ho, wo, int(up), _DTYPES[dtype], _VARIANTS[plan.variant], plan.rows, plan.cols,
                  plan.stages, plan.threads, plan.smem_bytes, (ctypes.c_int * 3)(*plan.grid),
-                 (ctypes.c_float * 4)(*kf), (ctypes.c_float * 4)(*kf), device)
+                 (ctypes.c_int * 4)(*pads), (ctypes.c_float * 4)(*kf), (ctypes.c_float * 4)(*kf), device)
     return (b, ho, wo, c), ctypes.pointer(args)
 
 
@@ -188,9 +200,10 @@ def _entry():
 
 
 def _launch(x: Tensor, taps: Sequence[float], up: bool, plan: Optional[FirPlan] = None,
-            backward: bool = False) -> Tensor:
+            backward: bool = False, extra: Tuple[int, int] = (0, 0)) -> Tensor:
     """Runs ``plan`` (by default ``plan_fir2x``'s) on a CUDA tensor; counted
-    as a backward launch where ``backward``."""
+    as a backward launch where ``backward``. ``extra``: an up's extra output
+    row and column."""
     if x.device.type != "cuda":
         raise ValueError(f"fir_resample2x: no kernel for device {x.device}")
     if x.ndim != 4 or x.dtype not in _DTYPES or not x.is_contiguous():
@@ -201,7 +214,7 @@ def _launch(x: Tensor, taps: Sequence[float], up: bool, plan: Optional[FirPlan] 
     if len(taps) != 4:
         raise ValueError(f"fir_resample2x: needs 4 taps, got {len(taps)}")
     shape, ptr, device = tuple(x.shape), x.data_ptr(), x.device.index
-    out_shape, args = _call(shape, x.dtype, up, tuple(taps), device, ptr % 16 == 0, plan)
+    out_shape, args = _call(shape, x.dtype, up, tuple(taps), device, ptr % 16 == 0, plan, tuple(extra))
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
@@ -212,11 +225,12 @@ def _launch(x: Tensor, taps: Sequence[float], up: bool, plan: Optional[FirPlan] 
     return out
 
 
-def _resample(x: Tensor, taps: Tuple[float, ...], up: bool, backward: bool = False) -> Tensor:
+def _resample(x: Tensor, taps: Tuple[float, ...], up: bool, backward: bool = False,
+              extra: Tuple[int, int] = (0, 0)) -> Tensor:
     """The kernel for a CUDA tensor, the plain version for a CPU one."""
     if x.device.type == "cpu":
-        return (fir_up2x_plain if up else fir_down2x_plain)(x, taps)
-    return _launch(x, taps, up, backward=backward)
+        return fir_up2x_plain(x, taps, extra) if up else fir_down2x_plain(x, taps)
+    return _launch(x, taps, up, backward=backward, extra=extra)
 
 
 class _Fir2x(torch.autograd.Function):
@@ -231,12 +245,9 @@ class _Fir2x(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, grad: Tensor):
         _, h, w, _ = ctx.in_shape
-        if not ctx.up and (h % 2 or w % 2):
-            raise NotImplementedError(
-                f"fir_down2x backward: no kernel for an odd-sized input {ctx.in_shape} "
-                "(its adjoint pads (2, 2) on the odd axis)"
-            )
-        return _resample(grad.contiguous(), ctx.taps[::-1], not ctx.up, backward=True), None, None
+        # a down's adjoint on an odd axis has one output more there
+        extra = (0, 0) if ctx.up else (h % 2, w % 2)
+        return _resample(grad.contiguous(), ctx.taps[::-1], not ctx.up, backward=True, extra=extra), None, None
 
 
 def _fir2x(x: Tensor, taps: Sequence[float], up: bool) -> Tensor:
@@ -248,7 +259,7 @@ def _fir2x(x: Tensor, taps: Sequence[float], up: bool) -> Tensor:
 
 def fir_down2x(x: Tensor, taps: Sequence[float]) -> Tensor:
     """Factor-2 decimation of x (B, H, W, C) -> (B, H // 2, W // 2, C);
-    differentiable where grad mode is on, for even H and W."""
+    differentiable where grad mode is on."""
     return _fir2x(x, taps, up=False)
 
 

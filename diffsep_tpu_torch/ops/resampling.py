@@ -3,9 +3,11 @@
 Counterpart of ``upsample_2d``/``downsample_2d``/``setup_kernel`` in
 ``diffsep_tpu/ops/resampling.py``. A factor-2 call with a separable 4-tap
 filter on NHWC data, which is every call NCSN++ makes, goes to the FIR 2x
-kernel (``fir_resample2x``) with the 1-D taps normalized per axis; any other
-call runs the plain ``upfirdn2d`` on the 2-D ``setup_kernel`` and is served
-on the CPU only.
+kernel (``fir_resample2x``) with the 1-D taps normalized per axis. Any other
+call (another factor, a 2-D or longer filter, NCHW data) runs the plain
+``upfirdn2d`` on the 2-D ``setup_kernel``, on the CPU or the card alike, as
+the JAX package computes such calls outside its TPU kernel
+(``upfirdn2d_ref``, an XLA convolution).
 """
 from __future__ import annotations
 
@@ -38,10 +40,6 @@ def _resample(x: Tensor, k, factor: int, gain: float, up: bool, data_format: str
         f = f / f.sum() * np.sqrt(gain) * (factor if up else 1)
         taps = tuple(float(v) for v in f)
         return (fir_resample2x.fir_up2x if up else fir_resample2x.fir_down2x)(x, taps)
-    if x.device.type != "cpu":
-        raise NotImplementedError(
-            "only factor-2, separable 4-tap NHWC resampling has a GPU kernel"
-        )
     k = setup_kernel(k) * (gain * factor**2 if up else gain)
     p = k.shape[0] - factor
     if up:

@@ -12,7 +12,8 @@ and W:
   out_size = (in * up + pad0 + pad1 - kernel) // down + 1
 
 It is the plain version of the FIR 2x resampling kernels in
-``fir_resample2x.py`` and serves any other factor on the CPU.
+``fir_resample2x.py``, and computes every resampling they do not serve
+(``resampling.py``), on the CPU or the card.
 """
 from __future__ import annotations
 

@@ -2,8 +2,8 @@
 
 Counterpart of ``diffsep_tpu/sampling/correctors.py``: ``langevin``
 (SNR-scaled step from the score and noise norms), ``ald`` (annealed, with
-the first source's std as a scalar), ``ald2`` (matrix std, the production
-corrector) and ``none``. ``update`` takes one standard-normal draw per
+the first source's std as a scalar; MixSDE), ``ald2`` (matrix std, the
+production corrector; MixSDE and PriorMixSDE) and ``none``. ``update`` takes one standard-normal draw per
 corrector step from the caller; each step evaluates the score once.
 """
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import Callable, Sequence
 import torch
 
 from ..sde.base import SDE
-from ..sde.mixsde import MixSDE
+from ..sde.mixsde import MixSDE, PriorMixSDE
 
 Tensor = torch.Tensor
 
@@ -29,8 +29,8 @@ class Corrector:
         raise NotImplementedError
 
 
-def _require_mixsde(sde, name: str) -> None:
-    if not isinstance(sde, MixSDE):
+def _require_sde(sde, name: str, classes) -> None:
+    if not isinstance(sde, classes):
         raise NotImplementedError(f"SDE class {type(sde).__name__} not supported by {name!r}")
 
 
@@ -54,7 +54,7 @@ class AnnealedLangevinDynamics(Corrector):
     """Annealed Langevin with the std scalarized as the first source's."""
 
     def __init__(self, sde, score_fn, snr, n_steps):
-        _require_mixsde(sde, "ald")
+        _require_sde(sde, "ald", MixSDE)
         super().__init__(sde, score_fn, snr, n_steps)
 
     def update(self, x, t, cond, noise):
@@ -73,7 +73,7 @@ class AnnealedLangevinDynamics2(Corrector):
     2 snr L z."""
 
     def __init__(self, sde, score_fn, snr, n_steps):
-        _require_mixsde(sde, "ald2")
+        _require_sde(sde, "ald2", (MixSDE, PriorMixSDE))
         super().__init__(sde, score_fn, snr, n_steps)
 
     def update(self, x, t, cond, noise):

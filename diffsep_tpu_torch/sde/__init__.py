@@ -1,4 +1,6 @@
-from .base import SDE, reverse_discretize, reverse_sde
-from .mixsde import MixSDE, mix_mats
+from .base import SDE, batch_broadcast, reverse_discretize, reverse_sde
+from .mixsde import MixSDE, PriorMixSDE, mix_mats
+from .ouve import OUVESDE, OUVPSDE
 
-__all__ = ["SDE", "MixSDE", "mix_mats", "reverse_discretize", "reverse_sde"]
+__all__ = ["SDE", "MixSDE", "PriorMixSDE", "OUVESDE", "OUVPSDE", "batch_broadcast", "mix_mats",
+           "reverse_discretize", "reverse_sde"]

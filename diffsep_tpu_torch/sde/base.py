@@ -17,6 +17,13 @@ Tensor = torch.Tensor
 ScoreFn = Callable[[Tensor, Tensor, Tensor], Tensor]  # score_fn(x, t, cond)
 
 
+def batch_broadcast(a, x: Tensor) -> Tensor:
+    """A (batch,) vector (or a scalar) shaped to broadcast over every
+    non-batch dim of x."""
+    a = torch.as_tensor(a, device=x.device)
+    return a.reshape((-1,) + (1,) * (x.ndim - 1))
+
+
 def _square_bcast(g: Tensor, x: Tensor) -> Tensor:
     """g**2 with trailing singleton dims so it broadcasts over x."""
     g = torch.as_tensor(g, device=x.device)
@@ -45,12 +52,14 @@ class SDE:
     ) -> Tensor:
         raise NotImplementedError
 
+    # a scalar std per batch entry, or a matrix; the matrix-valued SDEs
+    # override both
     @staticmethod
     def mult_std(L: Tensor, x: Tensor) -> Tensor:
-        raise NotImplementedError
+        return batch_broadcast(L, x) * x if L.ndim <= 1 else L @ x
 
     def mult_std_inv(self, L: Tensor, x: Tensor) -> Tensor:
-        raise NotImplementedError
+        return x / batch_broadcast(L, x) if L.ndim <= 1 else torch.linalg.solve(L, x)
 
     def discretize(
         self, x: Tensor, t: Tensor, cond: Tensor, dt: Optional[float] = None

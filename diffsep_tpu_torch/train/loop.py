@@ -5,7 +5,8 @@ Counterpart of ``diffsep_tpu/train/loop.py`` on one device:
   * scalars at the JAX package's cadence, to tensorboard where tensorboardX
     is importable, else nowhere: train/score_loss every ``log_every``
     micro-steps, grad/norm, grad/clipped_norm and grad/step_size every
-    ``grad_log_every``, val/score_loss and val/si_sdr after each validation;
+    ``grad_log_every``, val/score_loss and the model's validation metrics
+    (val/si_sdr; val/pesq for enhancement) after each validation;
   * ``train_log.jsonl``: every micro-step's loss, gradient norms, learning
     rate and the host clock at its start, written at the end of each epoch
     (after a ``torch.cuda.synchronize()``, whose time it records as
@@ -192,7 +193,9 @@ def fit(model, datamodule, workdir, config, seed: int = 0, max_epochs: Optional[
 
 def validate(model, datamodule, state, val_loss_fn, sep_seed: int) -> dict:
     """Score loss over the validation loader and separation metrics on its
-    first ``valid_max_sep_batches`` batches, all with the EMA weights."""
+    first ``valid_max_sep_batches`` batches, all with the EMA weights. A
+    metric that raises on a batch is logged and left out of its mean; one
+    that scored no batch is left out of the result."""
     losses = []
     sep_metrics = {name: [] for name in model.val_losses}
     with swapped(state.ema, state.params):
@@ -202,7 +205,13 @@ def validate(model, datamodule, state, val_loss_fn, sep_seed: int) -> dict:
             if i < model.valid_max_sep_batches:
                 est, _ = model.separate(mix, generator=step_generator(sep_seed, i, mix.device))
                 for name, loss in model.val_losses.items():
-                    sep_metrics[name].append(float(loss(est, target)))
+                    try:
+                        sep_metrics[name].append(float(loss(est, target)))
+                    except Exception as e:  # noqa: BLE001
+                        # a metric never ends training (PESQ raises on a
+                        # clip under 250 ms or a silent one): logged, and
+                        # left out of this validation's mean
+                        log.warning("val metric %s failed: %s", name, e)
     out = {"val/score_loss": float(torch.stack(losses).mean())}
     out.update({name: float(np.mean(vals)) for name, vals in sep_metrics.items() if vals})
     return out

@@ -39,12 +39,12 @@ def test_fir_up_gradcheck_at_odd_sizes():
     assert torch.autograd.gradcheck(lambda x: fir_resample2x.fir_up2x(x, TAPS_ASYM), (_rand(1, 5, 3, 2),))
 
 
-@pytest.mark.parametrize("shape", [(1, 5, 6, 2), (1, 6, 7, 2)])
+@pytest.mark.parametrize("shape", [(1, 5, 6, 2), (1, 6, 7, 2), (1, 7, 5, 2)])
 def test_fir_down_backward_raises_at_odd_sizes(shape):
-    x = _rand(*shape)
-    y = fir_resample2x.fir_down2x(x, TAPS_ASYM)  # forward has a kernel
-    with pytest.raises(NotImplementedError, match="odd-sized"):
-        y.sum().backward()
+    """The backward of a down on an odd axis, which raised until it had its
+    adjoint (an up with pads (2, 2) there, 2 m + 1 long): now it holds to
+    finite differences like the even sizes."""
+    assert torch.autograd.gradcheck(lambda x: fir_resample2x.fir_down2x(x, TAPS_ASYM), (_rand(*shape),))
 
 
 def test_backward_counts_nothing_on_the_cpu():

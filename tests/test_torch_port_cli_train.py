@@ -69,9 +69,20 @@ def test_train_validate_checkpoint_resume(data, tmp_path):
 
 
 @pytest.mark.parametrize("override,error", [
-    ("test=true", NotImplementedError), ("trainer.devices=2", NotImplementedError),
-    ("trainer.accelerator=tpu", ValueError),
+    ("trainer.devices=2", NotImplementedError), ("trainer.accelerator=tpu", ValueError),
 ])
 def test_unported_options_raise(data, tmp_path, override, error):
     with pytest.raises(error):
         _main(data, tmp_path / "exp", override)
+
+
+def test_test_true_scores_the_test_split(data, tmp_path):
+    """test=true after training: the test split with the EMA weights, in
+    the JAX CLI's records (cli/evaluate.py)."""
+    write_wsj0_mix(data, {"test": 2}, seconds=0.5, seed=1)
+    state = _main(data, tmp_path / "exp", "trainer.max_steps=2", "test=true", "datamodule.test.dl_opts.batch_size=1")
+    assert state.step == 2
+    results = _run_dir(tmp_path / "exp") / "test_results"
+    records = json.loads((results / "test.json").read_text())
+    assert len(records) == 2 and all(len(r["si_sdr"][0]) == 2 and r["nfe"] == 4 for r in records)
+    assert json.loads((results / "test_summary.json").read_text())["number"] == 2

@@ -313,10 +313,76 @@ def test_fir_backward_repeats_bit_for_bit(dev, up):
 
 
 def test_odd_fir_down_backward_raises(dev):
+    """The backward of a down on an odd axis, which raised until the kernel
+    had it: one launch of the up's "direct" variant with pads (2, 2) on the
+    odd axis, against the plain up on the same gradient."""
     x = torch.randn((1, 9, 10, 64), device=dev, requires_grad=True)
     y = fir_resample2x.fir_down2x(x, TAPS_DOWN)
-    with pytest.raises(NotImplementedError, match="odd-sized"):
-        y.sum().backward()
+    g = torch.randn(y.shape, device=dev)
+    _build.reset_counts()
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert dict(_build.backward_counts) == {"fir_up2x": 1}
+    _close(x.grad, fir_resample2x.fir_up2x_plain(g, TAPS_DOWN[::-1], (1, 0)), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 7, 10, 8), (1, 8, 9, 8), (2, 63, 95, 64), (1, 127, 129, 6)])
+def test_fir_down_backward_at_odd_sizes_matches_plain(dev, dtype, shape):
+    x = torch.randn(shape, device=dev).to(dtype).requires_grad_()
+    y = fir_resample2x.fir_down2x(x, TAPS_DOWN_ASYM)
+    g = torch.randn(y.shape, device=dev).to(dtype)
+    y.backward(g)
+    assert x.grad.shape == shape
+    extra = (shape[1] % 2, shape[2] % 2)
+    assert fir_resample2x.plan_fir2x(*g.shape, dtype, True, True, extra).variant == "direct"
+    _close(x.grad, fir_resample2x.fir_up2x_plain(g, TAPS_DOWN_ASYM[::-1], extra), dtype)
+
+
+@pytest.mark.parametrize("up,k,factor,fmt", [(True, [1, 3, 3, 1], 4, "NHWC"),
+                                             (False, [[1, 2, 1], [2, 4, 2], [1, 2, 1]], 2, "NHWC"),
+                                             (True, [1, 3, 3, 1], 2, "NCHW"), (False, [1, 1], 2, "NHWC")])
+def test_resampling_without_a_kernel_runs_plain_on_the_card(dev, up, k, factor, fmt):
+    """What no kernel serves runs the plain upfirdn2d on the card, launching
+    no kernel, and matches the CPU."""
+    from diffsep_tpu_torch.ops import resampling
+
+    fn = resampling.upsample_2d if up else resampling.downsample_2d
+    x = torch.randn((2, 16, 24, 32) if fmt == "NHWC" else (2, 32, 16, 24))
+    _build.reset_counts()
+    got = fn(x.to(dev), k, factor=factor, data_format=fmt)
+    torch.cuda.synchronize()
+    assert not _build.launch_counts
+    _close(got.cpu(), fn(x, k, factor=factor, data_format=fmt), torch.float32)
+
+
+@pytest.mark.parametrize("predictor,corrector", [("reverse_diffusion", "ald2"), ("ddim", "none"),
+                                                 ("dpmpp", "none")])
+def test_prior_mix_sde_sampling_on_the_card_matches_the_cpu(dev, predictor, corrector):
+    """The enhancement SDE's samplers with the same weights and draws, card
+    (kernels) against CPU (plain versions), at 1e-3 of scale; and its
+    float32 envelope over 3 s at 16 kHz, card against CPU, within 1e-4 of
+    its maximum (the cumsum's summation order)."""
+    from diffsep_tpu_torch.model import DiffSepModel
+    from diffsep_tpu_torch.sampling import pc_sample
+    from diffsep_tpu_torch.sde import PriorMixSDE
+
+    cfg = dict(SMALL_F32, sde={"_target_": "PriorMixSDE", "N": 3})
+    gpu = DiffSepModel(cfg, device=dev, seed=3)
+    cpu = DiffSepModel(cfg, device="cpu", seed=3)
+    assert isinstance(gpu.sde, PriorMixSDE)
+    rng = np.random.default_rng(4)
+    y = torch.from_numpy(rng.standard_normal((2, 1, 2000)).astype(np.float32))
+    y[:, :, 500:1200] *= 0.01
+    noise = _pc_noise(rng, (2, 2, 2000), 3)
+    kw = dict(predictor_name=predictor, corrector_name=corrector, N=3, snr=0.3, noise=noise)
+    with torch.no_grad():
+        got, _ = pc_sample(gpu.sde, gpu.score_fn, y.to(dev), **kw)
+        want, _ = pc_sample(cpu.sde, cpu.score_fn, y, **kw)
+    assert (got.cpu() - want).abs().max() <= 1e-3 * want.abs().max()
+    long = torch.from_numpy(rng.standard_normal((1, 1, 48000)).astype(np.float32))
+    env_gpu, env_cpu = gpu.sde._std_sigma_mix(long.to(dev)).cpu(), cpu.sde._std_sigma_mix(long)
+    assert (env_gpu - env_cpu).abs().max() <= 1e-4 * env_cpu.abs().max()
 
 
 def test_small_model_train_step_on_the_card_matches_the_cpu(dev):

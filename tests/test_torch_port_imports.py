@@ -32,4 +32,6 @@ def test_scan_covers_the_package():
     assert {p.name for p in FILES} >= {"torch_port_profile.py", "torch_port_conv_plans.py",
                                        "torch_port_fir_plans.py", "train.py", "loop.py", "serve.py",
                                        "serve_http.py", "loading.py", "eval_common.py", "streaming.py",
-                                       "separate.py", "pc.py", "predictors.py", "correctors.py"}
+                                       "separate.py", "pc.py", "predictors.py", "correctors.py",
+                                       "evaluate.py", "ouve.py", "mixsde.py", "vctk_demand.py",
+                                       "pesq_native.py", "metrics.py", "datamodule.py", "synthetic.py"}
