@@ -62,7 +62,20 @@ Phases, each of which fails the run on any error:
      the resampling calls no kernel serves (run plain on the card) are
      held against their plain versions; and PriorMixSDE sampling
      (reverse_diffusion + ald2, ddim + none) on the nf=32 float32 model,
-     card against CPU with the same draws, within 1e-3 of scale.
+     card against CPU with the same draws, within 1e-3 of scale;
+  9. distillation and the export artifact, on the run dir of phase 6:
+     cli.distill (stages 4, 2 on the log grid, DISTILL_STEPS steps each of
+     batch 6 x 5 s, 2 teacher substeps) times its steps after the first of
+     each stage and must launch 3 forward evaluations and one backward per
+     step (conv3x3 318 + 0, FIR down 54 + 18, FIR up 54 + 12); one
+     on-policy step at N=2 adds one evaluation; cli.separate serves the N=2
+     stage without sampler flags (PER_EVAL x 2 per file); cli.export_model
+     exports it (batch 2 x 5 s), its calls are timed, launch PER_EVAL x 2
+     inside the exported program and equal the live separate_masked on
+     the same seed within 1e-5 of scale; cli.separate and cli.serve's stdin
+     loop serve the artifact. Every new kernel shape of these runs is held
+     against its plain version in bf16; and distill_loss's gradients on the
+     nf=32 float32 model, kernels vs plain on the card and card vs CPU.
 
 The last lines are the `{"kernels": [...]}` summary, then
 `{"ok": true, "device": {...}}`. With --report, every result (per shape,
@@ -123,6 +136,9 @@ SAMPLER_CASES = [  # (label, predictor or "ode", corrector, settings)
 # micro-steps around the timing (2 optimizer steps at accumulation 4)
 ENH_FS, ENH_TRAIN, ENH_TEST, ENH_SEP = 16000, 36, 4, 2
 ENH_BATCH, ENH_WARMUP, ENH_TIMED = 4, 2, 6
+# distillation (phase 9): the halving schedule from the phase-6 run, steps
+# per stage (the first of each untimed), and timed calls of the artifact
+DISTILL_STAGES, DISTILL_STEPS, ART_CALLS = (4, 2), 5, 3
 RECORD_KEYS = {"batch_idx", "si_sdr", "si_sir", "si_sar", "pesq", "stoi", "nfe", "runtime", "len_s"}
 # odd-sized FIR downs whose backward is the pads-(2, 2) up (repair F1), and
 # resampling calls that no kernel serves, run plain on the card (F2)
@@ -1090,6 +1106,311 @@ def serve_entry_phase(dev, card, run_dir, tmp, mix, small_pair, rng, checked):
     return out, dict(total)
 
 
+def counting_distill_step(per_step):
+    """A stand-in for ``train.distill.make_distill_step`` whose step appends
+    its host start, launches (all and backward), kernel shapes and the peak
+    memory after it to ``per_step``."""
+    import torch
+
+    from diffsep_tpu_torch.ops import _build
+    from diffsep_tpu_torch.train import distill
+
+    make_distill_step = distill.make_distill_step
+
+    def counted(*args, **kwargs):
+        step = make_distill_step(*args, **kwargs)
+
+        def run(state, teacher, mix, target, draws=None):
+            before = [collections.Counter(c) for c in
+                      (_build.launch_counts, _build.backward_counts, _build.launch_shapes)]
+            t0 = time.perf_counter()
+            metrics = step(state, teacher, mix, target, draws)
+            after = (_build.launch_counts, _build.backward_counts, _build.launch_shapes)
+            launches, backward, shapes = (collections.Counter(a) - b for a, b in zip(after, before))
+            per_step.append(dict(start=t0, launches=dict(launches), backward=dict(backward), shapes=shapes,
+                                 batch=list(mix.shape), loss=metrics["distill/loss"],
+                                 peak_gib=torch.cuda.max_memory_allocated() / 2**30))
+            return metrics
+
+        return run
+
+    return counted
+
+
+def synced_distill_stage(ends):
+    """A stand-in for ``train.distill.distill_stage`` that ends each stage
+    with ``torch.cuda.synchronize()`` and appends the host clock then to
+    ``ends``."""
+    import torch
+
+    from diffsep_tpu_torch.train import distill
+
+    distill_stage = distill.distill_stage
+
+    def run(*args, **kwargs):
+        state = distill_stage(*args, **kwargs)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        return state
+
+    return run
+
+
+def distill_phase(dev, card, run_dir, tmp, small_pair, checked):
+    """Phase 9: distillation and the export artifact through their entry
+    points, on the run dir of phase 6; see the module docstring. Returns
+    (report, launches over the phase's main-path runs)."""
+    import os
+
+    import torch
+
+    from diffsep_tpu_torch.cli import distill as distill_cli
+    from diffsep_tpu_torch.cli import export_model as export_cli
+    from diffsep_tpu_torch.cli import separate as sep_cli
+    from diffsep_tpu_torch.cli.loading import load_model
+    from diffsep_tpu_torch.data.audio_io import load_wav
+    from diffsep_tpu_torch.export import load_separator
+    from diffsep_tpu_torch.ops import _build
+    from diffsep_tpu_torch.train import distill
+    from diffsep_tpu_torch.train.losses import Draws
+
+    out, total, shapes = {}, collections.Counter(), collections.Counter()
+
+    def counted(label, want):
+        torch.cuda.synchronize()
+        got = dict(_build.launch_counts)
+        total.update(got)
+        shapes.update(_build.launch_shapes)
+        assert got == want, (label, got, want)
+        return got
+
+    # distillation: cli.distill on the run dir's EMA weights and its data
+    dist_root = Path(tmp) / "distilled"
+    argv = [str(run_dir), "--stages", ",".join(map(str, DISTILL_STAGES)), "--steps", str(DISTILL_STEPS),
+            "--teacher-substeps", "2", "--schedule", "log", "--out", str(dist_root), "--log-every", "1"]
+    log(f"[distill] python -m diffsep_tpu_torch.cli.distill {' '.join(argv)}")
+    per_step, ends = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(distill, "make_distill_step", counting_distill_step(per_step)), \
+            mock.patch.object(distill, "distill_stage", synced_distill_stage(ends)):
+        distill_cli.main(argv)
+    run_s = time.perf_counter() - t0
+    want_step = {k: 3 * v for k, v in PER_EVAL.items()}  # 2 teacher substeps and the student
+    want_bwd = {k: v[1] for k, v in TRAIN_PER_STEP.items() if v[1]}
+    for k, v in want_bwd.items():
+        want_step[k] += v
+    n_steps = len(DISTILL_STAGES) * DISTILL_STEPS
+    counted("cli.distill", {k: n_steps * v for k, v in want_step.items()})
+    assert len(per_step) == n_steps and len(ends) == len(DISTILL_STAGES), (len(per_step), len(ends))
+    for st in per_step:
+        assert st["launches"] == want_step and st["backward"] == want_bwd, (st["launches"], st["backward"])
+        assert st["batch"] == [TRAIN_BATCH, 1, SERVE_SECONDS * FS], st["batch"]
+    losses = [float(st["loss"]) for st in per_step]
+    assert all(np.isfinite(losses)), losses
+    stages = []
+    for si, n in enumerate(DISTILL_STAGES):
+        steps = per_step[si * DISTILL_STEPS:(si + 1) * DISTILL_STEPS]
+        ms = (ends[si] - steps[1]["start"]) * 1e3 / (DISTILL_STEPS - 1)
+        stages.append(dict(n=n, ms_per_step=ms, samples_per_s=TRAIN_BATCH * 1e3 / ms,
+                           losses=losses[si * DISTILL_STEPS:(si + 1) * DISTILL_STEPS]))
+        log(f"[distill] N={n}: {DISTILL_STEPS} steps of batch {TRAIN_BATCH} x {SERVE_SECONDS} s, timed "
+            f"{DISTILL_STEPS - 1} after the first: {ms:.2f} ms per step, {TRAIN_BATCH * 1e3 / ms:.3f} samples/s "
+            f"({card}); losses {[f'{v:.6g}' for v in stages[-1]['losses']]}")
+    peak = max(st["peak_gib"] for st in per_step)
+    log(f"[distill] {n_steps} steps in {run_s:.1f} s with loading and 2 checkpoints; peak {peak:.2f} GiB; "
+        f"launches per step {per_step[-1]['launches']}, of them backward {per_step[-1]['backward']}")
+    out["distill"] = dict(run_s=run_s, stages=stages, peak_gib=peak, launches_per_step=per_step[-1]["launches"],
+                          backward_per_step=per_step[-1]["backward"])
+    step_shapes = per_step[-1]["shapes"]
+
+    # one on-policy step at N=2: the student's own trajectory, N - 1 = 1
+    # more evaluation without autograd
+    student_dir = dist_root / f"N{DISTILL_STAGES[-1]}"
+    model = load_model(student_dir, device=dev)
+    teacher = distill.frozen_copy(model.score_model)
+    state = model.init_state()
+    cfg = distill.DistillConfig(n_student=DISTILL_STAGES[-1], schedule="log", on_policy_frac=1.0,
+                                source_order=model.loss_cfg.train_source_order)
+    step = distill.make_distill_step(model.score_model, model.sde, model.optim_cfg, 0, cfg)
+    g = torch.Generator(device=dev).manual_seed(9)
+    tgt = 0.1 * torch.randn((TRAIN_BATCH, 2, SERVE_SECONDS * FS), generator=g, device=dev)
+    _build.reset_counts()
+    metrics = step(state, teacher, tgt.sum(dim=1, keepdim=True), tgt)
+    evals = 3 + DISTILL_STAGES[-1] - 1
+    onpol = counted("on-policy step", {k: evals * v + want_bwd.get(k, 0) for k, v in PER_EVAL.items()})
+    assert np.isfinite(metrics["distill/loss"].item())
+    out["on_policy_step"] = dict(evaluations=evals, launches=onpol, loss=metrics["distill/loss"].item())
+    log(f"[distill] on-policy step, N={DISTILL_STAGES[-1]}: {evals} forward evaluations (2 teacher, the student, "
+        f"{DISTILL_STAGES[-1] - 1} of its trajectory), launches {onpol}, loss {out['on_policy_step']['loss']:.6g}")
+    del teacher, state, step
+
+    # the student through cli.separate, without sampler flags
+    n_student = DISTILL_STAGES[-1]
+    files = sorted((Path(tmp) / "wsj0_mix" / "2speakers/wav8k/max/cv/mix").iterdir())[:2]
+    sep_in = Path(tmp) / "student_in"
+    sep_in.mkdir()
+    for f in files:
+        os.symlink(f, sep_in / f.name)
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    sep_cli.main([str(sep_in), str(Path(tmp) / "student_out"), "--model", str(student_dir)])
+    secs = time.perf_counter() - t0
+    got = counted("cli.separate student", launches_of(n_student, len(files)))
+    for f in files:
+        for src in range(2):
+            est, fs = load_wav(Path(tmp) / "student_out" / f"s{src}" / f.name)
+            assert fs == FS and est.shape == load_wav(f)[0].shape and np.isfinite(est).all(), f.name
+    out["student_separate"] = dict(files=len(files), seconds=secs, launches=got)
+    log(f"[distill] cli.separate IN OUT --model {student_dir.name} (ddim, none, N={n_student}, log grid from its "
+        f"config): {len(files)} files in {secs:.1f} s with loading; launches {got}")
+
+    # the export artifact of the student, and the artifact against the live model
+    art = Path(tmp) / "student.dst"
+    t0 = time.perf_counter()
+    export_cli.main([str(student_dir), "-o", str(art), "--batch", str(SERVE_BATCH), "--len-s", str(SERVE_SECONDS)])
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sep = load_separator(art)
+    load_s = time.perf_counter() - t0
+    assert sep.meta["sampler"]["predictor_name"] == "ddim" and sep.meta["sampler"]["N"] == n_student
+    rng = np.random.default_rng(12)
+    n = SERVE_SECONDS * FS
+    n_true = 3 * n // 5  # a 3 s request in the 5 s row
+    mix = (0.1 * rng.standard_normal((SERVE_BATCH, 1, n))).astype(np.float32)
+    mix[1, :, n_true:] = 0.0
+    n_valid = np.array([n, n_true])
+    calls = []
+    for i in range(ART_CALLS):
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        est = sep.call(21, mix, n_valid)
+        torch.cuda.synchronize()
+        calls.append(time.perf_counter() - t0)
+        got = counted("artifact call", launches_of(n_student))
+    want, nfe = model.separate_masked(mix, n_valid, generator=torch.Generator(device=dev).manual_seed(21))
+    assert nfe == n_student
+    scale = want.abs().max().item()
+    diff = (est - want).abs().max().item()
+    assert est.shape == (SERVE_BATCH, 2, n) and torch.isfinite(est).all() and diff <= 1e-5 * scale, (diff, scale)
+    assert (est[1, :, n_true:] == 0).all()
+    out["artifact"] = dict(export_s=export_s, load_s=load_s, bytes=art.stat().st_size, call_s=calls,
+                           utt_per_s=[SERVE_BATCH / s for s in calls], launches_per_call=got,
+                           max_abs_vs_live=diff, scale=scale, bit_exact=diff == 0.0)
+    log(f"[artifact] cli.export_model {student_dir.name} --batch {SERVE_BATCH} --len-s {SERVE_SECONDS}: "
+        f"{export_s:.1f} s, {art.stat().st_size / 1e6:.1f} MB, loaded in {load_s:.1f} s")
+    log(f"[artifact] call at {SERVE_BATCH} x {SERVE_SECONDS} s, N={n_student}: "
+        f"{', '.join(f'{SERVE_BATCH / s:.3f}' for s in calls)} utt/s ({card}); launches per call {got}; "
+        f"against the live separate_masked on the same seed: {diff:.3g} of scale {scale:.3g}"
+        f"{' (bit for bit)' if diff == 0.0 else ''}")
+    del model
+
+    # the artifact through cli.separate and cli.serve's stdin loop
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    sep_cli.main([str(sep_in), str(Path(tmp) / "artifact_out"), "--model", str(art)])
+    secs = time.perf_counter() - t0
+    got = counted("cli.separate artifact", launches_of(n_student, -(-len(files) // SERVE_BATCH)))
+    for f in files:
+        est_f, fs = load_wav(Path(tmp) / "artifact_out" / "s0" / f.name)
+        assert fs == FS and est_f.shape == load_wav(f)[0].shape and np.isfinite(est_f).all(), f.name
+    out["artifact_separate"] = dict(files=len(files), seconds=secs, launches=got)
+    log(f"[artifact] cli.separate IN OUT --model student.dst: {len(files)} files in {secs:.1f} s with loading; "
+        f"launches {got}")
+    paths = sorted((Path(tmp) / "wsj0_mix" / "2speakers/wav8k/max/tr/mix").iterdir())[:4]
+    code = ("import atexit, json, runpy, sys; from diffsep_tpu_torch.ops import _build; "
+            "atexit.register(lambda: print('LAUNCHES', json.dumps(dict(_build.launch_counts)), 'SHAPES', "
+            "json.dumps([[*key, n] for key, n in _build.launch_shapes.items()]), file=sys.stderr)); "
+            "runpy.run_module('diffsep_tpu_torch.cli.serve', run_name='__main__', alter_sys=True)")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, str(Path(tmp) / "serve_art"), "--model", str(art)],
+                          input="".join(f"{p}\n" for p in paths), capture_output=True, text=True, timeout=600,
+                          cwd=Path(__file__).resolve().parent)
+    secs = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    done = [line for line in proc.stdout.splitlines() if line.startswith("DONE ")]
+    got, child_shapes = proc.stderr.rsplit("LAUNCHES", 1)[1].splitlines()[0].split(" SHAPES ")
+    got = json.loads(got)
+    total.update(got)
+    shapes.update({(k, tuple(shape), cout): c for k, shape, cout, c in json.loads(child_shapes)})
+    runs = -(-len(paths) // SERVE_BATCH)
+    assert len(done) == len(paths) and got == launches_of(n_student, runs), (proc.stdout, got)
+    out["artifact_serve_stdin"] = dict(requests=len(paths), seconds=secs, launches=got)
+    log(f"[artifact] stdin: python -m diffsep_tpu_torch.cli.serve OUT --model student.dst: {len(done)} DONE in "
+        f"{runs} artifact calls, {secs:.1f} s with start-up; launches {got}")
+
+    # every kernel shape of these runs that earlier phases did not hold
+    # against its plain version, bf16, untimed (the distill step's are the
+    # training micro-step's)
+    checks = []
+    for i, ((k, shape, cout), cnt) in enumerate(sorted((shapes + step_shapes).items(), key=str)):
+        if (k, shape, cout) in checked:
+            continue
+        r = check_kernel(k, shape, cout, "bfloat16", dev, 600 + i, None, timed=False)
+        r["launches"] = cnt
+        checks.append(r)
+        log(f"[distill-kernel] {k} {shape}->{cout} bf16 x{cnt}:{plan_text(r['plan'])} "
+            f"err {r['max_abs_err']:.3g} (tol {r['tol']:.3g}) untimed")
+    out["kernel_checks"] = checks
+    log(f"[distill] {len(set(shapes) | set(step_shapes))} kernel shapes in the runs above, {len(checks)} of them "
+        f"new, each held against its plain version")
+    assert all(r["ok"] for r in checks), [r for r in checks if not r["ok"]]
+
+    # nf=32 float32: distill_loss and the student's gradients, kernels vs
+    # plain on the card and card vs CPU, on the same draws (on-policy and
+    # prior-at-T inputs included)
+    m_gpu, m_cpu = small_pair
+    b, n = 4, FS
+    d_rng = np.random.default_rng(13)
+    tgt = torch.from_numpy((0.3 * d_rng.standard_normal((b, 2, n))).astype(np.float32))
+    draws = {"i": np.array([0, 3, 1, 2]), "z": d_rng.standard_normal((b, 2, n)).astype(np.float32),
+             "use_prior": np.array([0.2, 0.9, 0.1, 0.3], np.float32),
+             "onpol_prior": d_rng.standard_normal((b, 2, n)).astype(np.float32),
+             "use_onpol": np.array([0.1, 0.7, 0.9, 0.2], np.float32)}
+    cfg = distill.DistillConfig(n_student=4, on_policy_frac=0.5)
+    res, counts = {}, {}
+    for route, m in (("kernels", m_gpu), ("plain", m_gpu), ("cpu", m_cpu)):
+        sm = m.score_model
+        teacher = distill.frozen_copy(sm)
+        with torch.no_grad():
+            for p in teacher.parameters():
+                p.mul_(0.99)
+        with plain_kernels() if route == "plain" else contextlib.nullcontext():
+            sm.zero_grad(set_to_none=True)
+            _build.reset_counts()
+            loss = distill.distill_loss(Draws(None, draws), m.sde, sm, teacher, tgt.sum(dim=1, keepdim=True).to(m.device),
+                                        tgt.to(m.device), cfg)
+            loss.backward()
+            if m.device.type == "cuda":
+                torch.cuda.synchronize()
+            counts[route] = (dict(_build.launch_counts), dict(_build.backward_counts))
+        res[route] = loss.item(), {name: p.grad.float().cpu() for name, p in sm.named_parameters()
+                                   if p.grad is not None}
+        sm.zero_grad(set_to_none=True)
+
+    def grad_err(a, b):
+        ga, gb = res[a][1], res[b][1]
+        norm = torch.sqrt(sum((v.double() ** 2).sum() for v in gb.values())).item()
+        return max((ga[k] - gb[k]).abs().max().item() for k in gb) / norm
+
+    pairs = {"kernels vs plain on the card": ("kernels", "plain"), "card vs cpu": ("kernels", "cpu")}
+    grad_check = {name: grad_err(a, b) for name, (a, b) in pairs.items()}
+    loss_rel = {name: abs(res[a][0] - res[b][0]) / abs(res[b][0]) for name, (a, b) in pairs.items()}
+    out["small_f32_distill_grad_check"] = dict(grad_rel_err=grad_check, loss_rel_err=loss_rel, tol=GRAD_TOL,
+                                               launches=counts["kernels"], losses={k: v[0] for k, v in res.items()})
+    for name, v in grad_check.items():
+        log(f"[distill] nf=32 f32 distill_loss gradients, {name}: {v:.3g} of the gradient norm "
+            f"(loss {loss_rel[name]:.3g} relative)")
+    for name, tol in GRAD_TOL.items():
+        assert grad_check[name] <= tol and loss_rel[name] <= tol, (name, grad_check[name], loss_rel[name])
+    assert counts["kernels"][0]["conv3x3"] > 0 and not counts["plain"][0], counts
+    out["launches"] = dict(total)
+    return out, dict(total)
+
+
 def ptxas_lines(text):
     """nvcc's -Xptxas -v report, one instantiation at a time: its kernel (the
     mangled template arguments shortened) beside its register and spill lines."""
@@ -1291,13 +1612,16 @@ def main() -> int:
         checked |= {(r["kernel"], tuple(r["shape"]), r["cout"])
                     for r in report["serve_entry_points"]["kernel_checks"]}
         report["enhance"], enh_counts = enhance_phase(dev, card, cycles_per_ms, tmp, (m_gpu, m_cpu), checked)
+        # 9. distillation and the export artifact, on the run dir of phase 6
+        checked |= {(r["kernel"], tuple(r["shape"]), r["cout"]) for r in report["enhance"]["kernel_checks"]}
+        report["distill"], dist_counts = distill_phase(dev, card, train["run_dir"], tmp, (m_gpu, m_cpu), checked)
 
     # summary per kernel: the bf16 (serving) times summed over one score
     # evaluation's launches at batch 2, and the bf16 times summed over one
     # training micro-step's launches (forward and backward) at batch 6 and
     # at the enhancement recipe's batch 4 x 3 s; launches over the main
     # paths: the serving run at N=30, the training run, the serving entry
-    # points and the enhancement phase
+    # points, the enhancement phase and distillation with the artifact
     serve_counts = serve["reverse_diffusion+ald2 N=30"]["launches"]
     summary = []
     for k, meta in KERNELS.items():
@@ -1306,6 +1630,7 @@ def main() -> int:
         tr = [r for r in train["kernel_checks"] if r["kernel"] == k]
         entry_rows = [r for r in report["serve_entry_points"]["kernel_checks"] if r["kernel"] == k]
         enh_rows = [r for r in report["enhance"]["kernel_checks"] if r["kernel"] == k]
+        dist_rows = [r for r in report["distill"]["kernel_checks"] if r["kernel"] == k]
         if k == "fir_up2x":  # the down's backward at odd sizes runs the up kernel
             enh_rows += report["enhance"]["odd_fir_backward"]
         enh_tr = [r for r in enh_rows if "launches_per_micro_step" in r]
@@ -1318,15 +1643,17 @@ def main() -> int:
 
         summary.append(dict(
             name=k, route="cuda", source=meta["source"], replaces=meta["replaces"],
-            launches=serve_counts[k] + train["launches"][k] + entry_counts[k] + enh_counts[k],
-            max_abs_err=max(r["max_abs_err"] for r in rows + tr + entry_rows + enh_rows),
+            launches=serve_counts[k] + train["launches"][k] + entry_counts[k] + enh_counts[k] + dist_counts[k],
+            max_abs_err=max(r["max_abs_err"] for r in rows + tr + entry_rows + enh_rows + dist_rows),
             ms=per_eval_sum("ms"), plain_ms=per_eval_sum("plain_ms"),
             bound_ms=per_eval_sum("bound_ms"),
             bound_by="operations" if per_eval_sum("ops_ms") >= per_eval_sum("bytes_ms") else "bytes",
             library_ms=per_eval_sum("library_ms"),
             launches_by_path={"serve N=30": serve_counts[k], "train": train["launches"][k],
                               "train backward": train["backward_launches"].get(k, 0),
-                              "serve entry points": entry_counts[k], "enhance": enh_counts[k]},
+                              "serve entry points": entry_counts[k], "enhance": enh_counts[k],
+                              "distill and artifact": dist_counts[k]},
+            launches_per_distill_step={"forward": 3 * PER_EVAL[k], "backward": TRAIN_PER_STEP[k][1]},
             launches_per_micro_step={"forward": TRAIN_PER_STEP[k][0], "backward": TRAIN_PER_STEP[k][1]},
             train_ms_per_micro_step=per_step_sum("ms"), train_plain_ms=per_step_sum("plain_ms"),
             train_bound_ms=per_step_sum("bound_ms"), train_library_ms=per_step_sum("library_ms"),

@@ -204,6 +204,22 @@ def sampler_flag_map(args) -> dict:
     ) if hasattr(args, attr)}
 
 
+def apply_pinned_sampler(args, cfg) -> None:
+    """Fill the sampler flags the user left unset (``predictor``,
+    ``corrector``, ``N``, ``schedule``) from the sampler a model's config
+    pins: a distilled student's run dir (``cli/distill.py``) names its
+    predictor, corrector, N and schedule, so the CLIs sample it at its own N
+    without flags. A config that names no predictor pins nothing, and the
+    CLIs keep their own defaults."""
+    sk = dict(cfg.get("sampler") or {})
+    if "predictor_name" not in sk:
+        return
+    for attr, key in (("predictor", "predictor_name"), ("corrector", "corrector_name"), ("N", "N"),
+                      ("schedule", "schedule")):
+        if getattr(args, attr, None) is None and sk.get(key) is not None:
+            setattr(args, attr, sk[key])
+
+
 def reject_baked_flags(set_map: dict, why: str) -> None:
     """SystemExit naming every flag of ``set_map`` that is set, where the
     sampler is fixed and cannot take them."""

@@ -37,8 +37,8 @@ from ..data import DataLoader, NoisyDataset, WSJ0_mix
 from ..train.ema import swapped
 from ..train.losses import normalize_batch
 from ..train.trainer import step_generator
-from .eval_common import (compute_metrics, experiment_tag, sampler_run_config, save_fig, save_samples,
-                          str2bool, summarize)
+from .eval_common import (apply_pinned_sampler, compute_metrics, experiment_tag, sampler_run_config, save_fig,
+                          save_samples, str2bool, summarize)
 from .loading import load_model
 
 log = logging.getLogger(__name__)
@@ -64,9 +64,11 @@ def build_parser():
     parser.add_argument("--stoi-no-extended", action="store_true", help="Disable extended STOI")
     parser.add_argument("-s", "--schedule", type=str, default=None,
                         help="Pick a different schedule for the inference")
-    parser.add_argument("--predictor", type=str, default="reverse_diffusion",
-                        help="Predictor name (ddim = fast exact-transition sampler)")
-    parser.add_argument("--corrector", type=str, default="ald2", help="Corrector name (none with ddim)")
+    parser.add_argument("--predictor", type=str, default=None,
+                        help="Predictor name (default reverse_diffusion, or the sampler the run pins; "
+                        "ddim = fast exact-transition sampler)")
+    parser.add_argument("--corrector", type=str, default=None,
+                        help="Corrector name (default ald2, or the run's; none with ddim)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--avg-last-k", type=int, default=None,
                         help="average the evaluation weights of the k most recent checkpoints "
@@ -178,6 +180,7 @@ def main(argv=None):
         output_dir = args.output_dir / (args.tag or "mix")
     else:
         model = load_model(args.ckpt, avg_last_k=args.avg_last_k, device=resolve_device(args.device))
+        apply_pinned_sampler(args, model.config)
         fs = int(model.config["fs"])
         if args.enhance:
             datasets["test"] = NoisyDataset(**_dataset_config(model.run_config, "test"))
@@ -198,7 +201,7 @@ def main(argv=None):
         evaluate_split(model, ds, split, output_dir, fs=fs, n_src=n_src, limit=args.limit, save_n=args.save_n,
                        sampler_kwargs=sampler_kwargs, pesq_mode=args.pesq_mode,
                        stoi_extended=not args.stoi_no_extended, no_proc=no_proc, seed=args.seed,
-                       predictor=args.predictor, corrector=args.corrector)
+                       predictor=args.predictor or "reverse_diffusion", corrector=args.corrector or "ald2")
 
 
 def evaluate_datamodule(model, state, dm, output_dir):

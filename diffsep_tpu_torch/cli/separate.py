@@ -5,7 +5,12 @@ separated and each source written to ``<output>/s<i>/<name>.wav``.
 
 Counterpart of ``diffsep_tpu/cli/separate.py``. ``--model`` is a run dir of
 ``diffsep_tpu_torch.cli.train`` (its EMA weights), one of its checkpoints,
-or a reference Lightning checkpoint (``cli/loading.py``). Each file is
+or a reference Lightning checkpoint (``cli/loading.py``); a sampler that
+the run's config pins (a distilled stage, ``cli/distill.py``) is the
+default. It may also be an export artifact of the port
+(``cli/export_model.py``): the files then go through the serving engine's
+``ArtifactEngine`` at the artifact's static batch and length, with the
+sampler baked in at export. Each file is
 normalized on its true length, zero-padded to whole seconds (the length
 bucket of the serving engine), separated by the PC sampler, cut back to its
 length, and the raw mixture is projected onto the estimates
@@ -25,11 +30,12 @@ from .. import resolve_device
 from ..data.audio_io import load_wav, save_wav
 from ..train.losses import normalize_batch
 from ..train.trainer import step_generator
-from .eval_common import str2bool
+from .eval_common import apply_pinned_sampler, reject_baked_flags, sampler_flag_map, str2bool
 from .loading import load_model
 
 DEFAULT_MODEL = "fakufaku/diffsep"
-# the first bytes of an export artifact of the JAX package (diffsep_tpu/export.py)
+# the first bytes of an export artifact of the JAX package (diffsep_tpu/export.py),
+# which the port does not serve (its own artifacts start with export._MAGIC)
 ARTIFACT_MAGIC = b"DSEXP01\n"
 
 log = logging.getLogger(__name__)
@@ -50,7 +56,8 @@ def resolve_model_path(model) -> Path:
 
 
 def reject_artifact(path: Path) -> None:
-    """An export artifact of the JAX package is not served by the port yet."""
+    """An export artifact of the JAX package (StableHLO) is not served by the
+    port, which serves its own."""
     try:
         with open(path, "rb") as f:
             is_artifact = f.read(len(ARTIFACT_MAGIC)) == ARTIFACT_MAGIC
@@ -58,8 +65,9 @@ def reject_artifact(path: Path) -> None:
         return
     if is_artifact:
         raise NotImplementedError(
-            f"{path} is an export artifact: not ported to diffsep_tpu_torch yet (ROADMAP.md, "
-            "queue 1 item 4, the export artifact: export.py, cli/export_model.py and ArtifactEngine)")
+            f"{path} is an export artifact of the JAX package (StableHLO): not ported to diffsep_tpu_torch "
+            "(ROADMAP.md, queue 1 item 4, the export artifact); export the checkpoint with "
+            "diffsep_tpu_torch.cli.export_model and serve that")
 
 
 def scale_output(mix: np.ndarray, sep: np.ndarray) -> np.ndarray:
@@ -67,6 +75,25 @@ def scale_output(mix: np.ndarray, sep: np.ndarray) -> np.ndarray:
     num = (mix * sep).sum(axis=-1, keepdims=True)
     denom = (sep * sep + 1e-10).sum(axis=-1, keepdims=True)
     return num / denom * sep
+
+
+def separate_with_artifact(path: Path, args, device) -> None:
+    """The folder through an export artifact of the port, batched by the
+    serving engine (same ``s<i>/<stem>.wav`` layout); a file that the
+    artifact cannot take (another rate, longer than its length) is skipped
+    with a warning."""
+    from ..export import load_separator
+    from .serve import ArtifactEngine
+
+    reject_baked_flags({**sampler_flag_map(args), "--stream-chunk-s": args.stream_chunk_s,
+                        "--avg-last-k": args.avg_last_k},
+                       "not available with an export artifact: sampler settings are baked at export time "
+                       "(cli/export_model.py) and streaming needs a live model")
+    eng = ArtifactEngine(load_separator(path, device=device), seed=args.seed)
+    args.output_dir.mkdir(parents=True, exist_ok=True)
+    for wavpath, ok, msg in eng.process(sorted(args.input_dir.glob("*.wav")), args.output_dir):
+        if not ok:
+            log.warning("skipping %s: %s", wavpath.name, msg)
 
 
 def main(argv=None) -> None:
@@ -97,8 +124,14 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)
     model_path = resolve_model_path(args.model)
+    from .serve import _is_artifact
+
+    if _is_artifact(model_path):
+        separate_with_artifact(model_path, args, device)
+        return
     reject_artifact(model_path)
     model = load_model(model_path, avg_last_k=args.avg_last_k, device=device)
+    apply_pinned_sampler(args, model.config)
     fs_model = int(model.config["fs"])
     predictor = args.predictor or "reverse_diffusion"
     corrector = args.corrector or "ald2"

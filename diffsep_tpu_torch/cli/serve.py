@@ -2,11 +2,14 @@
 
     python -m diffsep_tpu_torch.cli.serve OUT_DIR --model RUN_DIR [--watch DIR | --http HOST:PORT]
 
-Counterpart of ``diffsep_tpu/cli/serve.py`` (without the export artifact,
-which is not ported yet). The model is loaded once and stays on the card;
-requests are grouped by length bucket (1 s by default) and separated in
-micro-batches of up to ``--batch``, padded with zero rows. Three front ends
-share the engine:
+Counterpart of ``diffsep_tpu/cli/serve.py``. The model is loaded once and
+stays on the card; requests are grouped by length bucket (1 s by default)
+and separated in micro-batches of up to ``--batch``, padded with zero rows.
+``--model`` may also be an export artifact of the port
+(``cli/export_model.py``), served by ``ArtifactEngine`` at its static batch
+and length, with the sampler it was exported with. A sampler that a run's
+config pins (a distilled stage) is the default. Three front ends share the
+engine:
   * stdin (default): one wav path per line; the sources are written to
     ``OUT_DIR/s<i>/<stem>.wav`` and ``DONE <path>`` (or ``ERROR <path>
     <reason>``) printed per request;
@@ -31,6 +34,7 @@ from .. import resolve_device
 from ..data.audio_io import load_wav, save_wav
 from ..train.losses import normalize_rows_host
 from ..train.trainer import step_generator
+from .eval_common import apply_pinned_sampler, reject_baked_flags, sampler_flag_map
 from .loading import load_model
 from .separate import reject_artifact, resolve_model_path, scale_output
 
@@ -194,12 +198,81 @@ class SeparationEngine(_EngineBase):
                 for j in range(len(mixes))]
 
 
-def _engine_from_args(args) -> SeparationEngine:
+class ArtifactEngine(_EngineBase):
+    """Serving from an export artifact of the port (``export.py``): no
+    config, checkpoint or model code, one static (batch, n_samples)
+    contract and the sampler baked in at export. A request of up to
+    n_samples is a zero-padded row whose length goes in as the artifact's
+    n_valid, so that its normalization statistics come from its true span,
+    as the live engine's do on the host; filler rows are full-length zeros.
+    Micro-batch k draws from the seed (seed, k)."""
+
+    def __init__(self, sep, seed: int = 0):
+        self.sep = sep
+        self.fs = int(sep.meta["fs"])
+        self.batch = sep.batch
+        self.bucket = sep.n_samples  # one static length
+        self.seed = seed
+        self.n_req = 0
+
+    def warmup(self, seconds=()) -> None:
+        """Run the artifact once (its length is baked in): loads the kernels
+        before the first real request."""
+        self._run_bucket([np.zeros((1, self.bucket), np.float32) + 1e-3])
+        log.info("warmup: ran the artifact's static shape")
+
+    def validate(self, wav: np.ndarray, sr: int):
+        err = super().validate(wav, sr)
+        if err is None and wav.shape[-1] > self.bucket:
+            return f"{wav.shape[-1]} samples, more than the artifact's static {self.bucket}"
+        return err
+
+    def _dispatch_bucket(self, mixes):
+        lens = [m.shape[-1] for m in mixes]
+        n = self.bucket
+        rows = [np.pad(np.asarray(m, np.float32), ((0, 0), (0, n - m.shape[-1]))) for m in mixes]
+        n_valid = lens + [n] * (self.batch - len(rows))
+        rows += [np.zeros((1, n), np.float32)] * (self.batch - len(rows))
+        self.n_req += 1
+        seed = (self.seed * 1_000_003 + self.n_req) & 0x7FFFFFFF
+        est = self.sep.call(seed, np.stack(rows), np.asarray(n_valid, np.int64))
+        return est, mixes, lens
+
+    def _finalize_bucket(self, handle):
+        est, mixes, lens = handle
+        est = est.float().cpu().numpy()
+        return [scale_output(mixes[j][None], est[j:j + 1, :, :lens[j]])[0] for j in range(len(mixes))]
+
+
+def _is_artifact(path: Path) -> bool:
+    """Whether ``path`` is an export artifact of the port, by its magic,
+    whatever its name."""
+    from ..export import _MAGIC
+
+    try:
+        with open(path, "rb") as f:
+            return f.read(len(_MAGIC)) == _MAGIC
+    except OSError:
+        return False
+
+
+def _engine_from_args(args):
     model_path = resolve_model_path(args.model)
+    device = resolve_device(args.device)
+    if _is_artifact(model_path):
+        from ..export import load_separator
+
+        reject_baked_flags(sampler_flag_map(args), "sampler settings are baked into the artifact at export "
+                           "time (cli/export_model.py); re-export to change them")
+        eng = ArtifactEngine(load_separator(model_path, device=device), seed=args.seed)
+        log.info("artifact engine: batch=%d n_samples=%d fs=%d (--batch and --bucket-s do not apply: the "
+                 "artifact's static contract rules)", eng.batch, eng.bucket, eng.fs)
+        return eng
     reject_artifact(model_path)
-    model = load_model(model_path, device=resolve_device(args.device))
-    kw = {k: v for k, v in (("N", args.N), ("snr", args.snr), ("corrector_steps", args.corrector_steps))
-          if v is not None}
+    model = load_model(model_path, device=device)
+    apply_pinned_sampler(args, model.config)
+    kw = {k: v for k, v in (("N", args.N), ("snr", args.snr), ("corrector_steps", args.corrector_steps),
+                            ("schedule", getattr(args, "schedule", None))) if v is not None}
     return SeparationEngine(model, batch=args.batch, bucket_s=args.bucket_s, seed=args.seed,
                             sampler_kwargs=kw, predictor=args.predictor or "reverse_diffusion",
                             corrector=args.corrector or "ald2")
@@ -210,7 +283,8 @@ def main(argv=None):
         description="Long-running separation service: stdin line protocol, --watch drop folder or --http")
     parser.add_argument("output_dir", type=Path)
     parser.add_argument("--model", type=Path, default=Path("fakufaku/diffsep"),
-                        help="run dir, checkpoint file, or reference .ckpt")
+                        help="run dir, checkpoint file, reference .ckpt, or an export artifact "
+                        "(cli/export_model.py)")
     parser.add_argument("--watch", type=Path, default=None, help="poll this directory for new wav files")
     parser.add_argument("--http", default=None, metavar="HOST:PORT",
                         help="serve over HTTP: POST /v1/separate (wav body -> multi-channel wav), "

@@ -14,6 +14,7 @@ attention scores are float32. A 3x3 conv runs the CUDA kernel of
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
@@ -90,6 +91,25 @@ class NIN(nn.Module):
         return x @ self.W.to(x.dtype) + self.b.to(x.dtype)
 
 
+_weights_in_graph = False
+
+
+@contextlib.contextmanager
+def weights_in_graph():
+    """Inside the block every 3x3 conv makes its kernel weight from the
+    parameter on each call, as in grad mode, instead of taking the copy it
+    keeps: that copy is keyed on the parameter's data pointer, which a
+    traced tensor does not have. ``export.export_separator`` traces the
+    score model inside it, so the weight's permute and cast are nodes of the
+    exported program."""
+    global _weights_in_graph
+    prev, _weights_in_graph = _weights_in_graph, True
+    try:
+        yield
+    finally:
+        _weights_in_graph = prev
+
+
 class Conv(nn.Module):
     """k x k stride-1 SAME convolution (k = 1 or 3) on NHWC, OIHW weight.
 
@@ -97,8 +117,8 @@ class Conv(nn.Module):
     ``F.conv2d`` on the CPU. Its weight goes in as a contiguous HWIO copy in
     the compute dtype. Without grad mode it is made once per weight version
     (a load or an optimizer step bumps it) and kept, not rebuilt on every
-    call; in grad mode it is made on every call, differentiably. The 1x1
-    case is a plain matrix product.
+    call; in grad mode, and inside ``weights_in_graph``, it is made on every
+    call, differentiably. The 1x1 case is a plain matrix product.
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
@@ -118,7 +138,7 @@ class Conv(nn.Module):
 
     def _kernel_weight(self, dt: torch.dtype) -> Tensor:
         w = self.weight
-        if torch.is_grad_enabled() and w.requires_grad:
+        if _weights_in_graph or (torch.is_grad_enabled() and w.requires_grad):
             # training: a differentiable copy, so that dW reaches the
             # float32 parameter
             return w.permute(2, 3, 1, 0).to(dt).contiguous()

@@ -28,12 +28,19 @@ second, deterministic pass sums.
 Every call counts as one ``conv3x3`` launch, whichever of these runs and
 whether or not the split-K pass follows.
 
-Gradients. Where an input needs one, ``conv3x3`` is a
-``torch.autograd.Function`` whose forward is the kernel and whose backward
-is the framework conv's, as ``conv3x3_mxu`` (``conv3x3.py:190-205``) takes
-XLA's: dx and dw from ``aten.convolution_backward`` (cuDNN on the card) on
-the NHWC tensors viewed as channels-last NCHW, db a sum over (B, H, W).
-The backward launches no kernel of ``csrc/`` and counts nothing.
+The op. ``conv3x3`` calls the custom op ``torch.ops.diffsep.conv3x3``
+(``torch.library``): its CPU implementation is the plain version, its
+CUDA one the kernel, which raises where it cannot launch; a fake
+implementation gives the output's shape, so ``torch.export`` traces each
+call as one node and the exported program launches the kernel, counted as
+here. The alignment test that picks the generic kernel reads data
+pointers, so it lives in the real implementation only.
+
+Gradients. The op's autograd (``torch.library.register_autograd``) is the
+framework conv's backward, as ``conv3x3_mxu`` (``conv3x3.py:190-205``)
+takes XLA's: dx and dw from ``aten.convolution_backward`` (cuDNN on the
+card) on the NHWC tensors viewed as channels-last NCHW, db a sum over (B,
+H, W). The backward launches no kernel of ``csrc/`` and counts nothing.
 
 The weight is HWIO (3, 3, Cin, Cout) and contiguous, the layout the kernels
 read; ``models.layers.Conv`` keeps the OIHW parameter of the reference
@@ -48,7 +55,6 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
 from . import _build
 
@@ -238,39 +244,48 @@ def _forward(x: Tensor, weight: Tensor, bias: Optional[Tensor]) -> Tensor:
     return _launch(x, weight, bias, plan)
 
 
-class _Conv3x3(torch.autograd.Function):
-    """The forward of ``_forward``; the framework conv's backward."""
+@torch.library.custom_op("diffsep::conv3x3", mutates_args=())
+def _conv3x3_op(x: Tensor, weight: Tensor, bias: Optional[Tensor]) -> Tensor:
+    return _forward(x, weight, bias)
 
-    @staticmethod
-    def forward(ctx, x: Tensor, weight: Tensor, bias: Optional[Tensor]) -> Tensor:
-        ctx.save_for_backward(x, weight)
-        return _forward(x, weight, bias)
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad: Tensor):
-        x, weight = ctx.saved_tensors
-        need_x, need_w, need_b = ctx.needs_input_grad
-        grad = grad.contiguous()
-        dx = dw = db = None
-        if need_x or need_w:
-            # the weight as OHWI data, which is OIHW in channels_last
-            w_oihw = weight.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
-            dx, dw, _ = torch.ops.aten.convolution_backward(
-                grad.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w_oihw, None,
-                [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [need_x, need_w, False],
-            )
-            dx = dx.permute(0, 2, 3, 1) if need_x else None
-            dw = dw.permute(2, 3, 1, 0) if need_w else None
-        if need_b:
-            db = grad.sum(dim=(0, 1, 2))
-        return dx, dw, db
+@_conv3x3_op.register_fake
+def _(x: Tensor, weight: Tensor, bias: Optional[Tensor]) -> Tensor:
+    return x.new_empty((*x.shape[:3], weight.shape[3]))
+
+
+def _setup_context(ctx, inputs, output) -> None:
+    x, weight, _ = inputs
+    ctx.save_for_backward(x, weight)
+
+
+def _backward(ctx, grad: Tensor):
+    """The framework conv's backward: dx, dw and db where each is needed."""
+    x, weight = ctx.saved_tensors
+    need_x, need_w, need_b = ctx.needs_input_grad
+    grad = grad.contiguous()
+    dx = dw = db = None
+    if need_x or need_w:
+        # the weight as OHWI data, which is OIHW in channels_last
+        w_oihw = weight.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            grad.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w_oihw, None,
+            [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [need_x, need_w, False],
+        )
+        dx = dx.permute(0, 2, 3, 1) if need_x else None
+        dw = dw.permute(2, 3, 1, 0) if need_w else None
+    if need_b:
+        db = grad.sum(dim=(0, 1, 2))
+    return dx, dw, db
+
+
+_conv3x3_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def conv3x3(x: Tensor, weight: Tensor, bias: Optional[Tensor] = None) -> Tensor:
     """y = conv(x, weight) + bias. x (B, H, W, Cin), weight (3, 3, Cin,
     Cout), bias (Cout,) or None; float32 or bfloat16, accumulated in f32.
     Differentiable in all three where grad mode is on."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, weight, bias)):
-        return _Conv3x3.apply(x, weight, bias)
-    return _forward(x, weight, bias)
+    if x.device.type not in ("cpu", "cuda"):  # the op would give a meta tensor its fake output
+        raise ValueError(f"conv3x3: no kernel for device {x.device}")
+    return _conv3x3_op(x, weight, bias)

@@ -26,6 +26,13 @@ A strip is ``rows`` steps: output rows for down, input rows (two output
 rows each) for up. Every call counts as one launch of ``fir_down2x`` or
 ``fir_up2x``.
 
+The ops. ``fir_down2x``/``fir_up2x`` call the custom ops
+``torch.ops.diffsep.fir_down2x``/``fir_up2x`` (``torch.library``): the
+plain version on the CPU, the kernel on the card (raising where it cannot
+launch), and a fake implementation with the output's shape, so that
+``torch.export`` traces each call as one node. The data pointer that picks
+the plan is read in the real implementation only.
+
 Gradients. The two are mutually adjoint, and each one's backward launches
 the other kernel, as ``_pallas_bwd`` (``diffsep_tpu/ops/upfirdn2d.py:157-186``)
 routes it: upfirdn2d(g, flip(k), up=down, down=up) with the pads derived
@@ -47,7 +54,6 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.autograd.function import once_differentiable
 
 from . import _build
 from .upfirdn2d import out_size, upfirdn2d
@@ -233,37 +239,62 @@ def _resample(x: Tensor, taps: Tuple[float, ...], up: bool, backward: bool = Fal
     return _launch(x, taps, up, backward=backward, extra=extra)
 
 
-class _Fir2x(torch.autograd.Function):
-    """``_resample`` forward; the other direction, taps reversed, backward."""
-
-    @staticmethod
-    def forward(ctx, x: Tensor, taps: Tuple[float, ...], up: bool) -> Tensor:
-        ctx.taps, ctx.up, ctx.in_shape = taps, up, tuple(x.shape)
-        return _resample(x, taps, up)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad: Tensor):
-        _, h, w, _ = ctx.in_shape
-        # a down's adjoint on an odd axis has one output more there
-        extra = (0, 0) if ctx.up else (h % 2, w % 2)
-        return _resample(grad.contiguous(), ctx.taps[::-1], not ctx.up, backward=True, extra=extra), None, None
+@torch.library.custom_op("diffsep::fir_down2x", mutates_args=())
+def _fir_down2x_op(x: Tensor, taps: Sequence[float], backward: bool) -> Tensor:
+    return _resample(x, tuple(taps), False, backward=backward)
 
 
-def _fir2x(x: Tensor, taps: Sequence[float], up: bool) -> Tensor:
-    taps = tuple(float(t) for t in taps)
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _Fir2x.apply(x, taps, up)
-    return _resample(x, taps, up)
+@torch.library.custom_op("diffsep::fir_up2x", mutates_args=())
+def _fir_up2x_op(x: Tensor, taps: Sequence[float], extra: Sequence[int], backward: bool) -> Tensor:
+    return _resample(x, tuple(taps), True, backward=backward, extra=tuple(extra))
+
+
+@_fir_down2x_op.register_fake
+def _(x: Tensor, taps: Sequence[float], backward: bool) -> Tensor:
+    b, h, w, c = x.shape
+    return x.new_empty((b, h // 2, w // 2, c))
+
+
+@_fir_up2x_op.register_fake
+def _(x: Tensor, taps: Sequence[float], extra: Sequence[int], backward: bool) -> Tensor:
+    b, h, w, c = x.shape
+    return x.new_empty((b, 2 * h + extra[0], 2 * w + extra[1], c))
+
+
+def _setup_context(ctx, inputs, output) -> None:
+    ctx.taps, ctx.in_shape = tuple(inputs[1]), tuple(inputs[0].shape)
+    ctx.extra = tuple(inputs[2]) if len(inputs) == 4 else (0, 0)
+
+
+def _down_backward(ctx, grad: Tensor):
+    # a down's adjoint on an odd axis has one output more there
+    _, h, w, _ = ctx.in_shape
+    return _fir_up2x_op(grad.contiguous(), ctx.taps[::-1], (h % 2, w % 2), True), None, None
+
+
+def _up_backward(ctx, grad: Tensor):
+    if any(ctx.extra):
+        raise NotImplementedError("fir_up2x: no gradient with extra output rows or columns")
+    return _fir_down2x_op(grad.contiguous(), ctx.taps[::-1], True), None, None, None
+
+
+_fir_down2x_op.register_autograd(_down_backward, setup_context=_setup_context)
+_fir_up2x_op.register_autograd(_up_backward, setup_context=_setup_context)
+
+
+def _taps(x: Tensor, taps: Sequence[float]) -> Tuple[float, ...]:
+    if x.device.type not in ("cpu", "cuda"):  # the op would give a meta tensor its fake output
+        raise ValueError(f"fir_resample2x: no kernel for device {x.device}")
+    return tuple(float(t) for t in taps)
 
 
 def fir_down2x(x: Tensor, taps: Sequence[float]) -> Tensor:
     """Factor-2 decimation of x (B, H, W, C) -> (B, H // 2, W // 2, C);
     differentiable where grad mode is on."""
-    return _fir2x(x, taps, up=False)
+    return _fir_down2x_op(x, _taps(x, taps), False)
 
 
 def fir_up2x(x: Tensor, taps: Sequence[float]) -> Tensor:
     """Factor-2 interpolation of x (B, H, W, C) -> (B, 2 H, 2 W, C);
     differentiable where grad mode is on."""
-    return _fir2x(x, taps, up=True)
+    return _fir_up2x_op(x, _taps(x, taps), (0, 0), False)

@@ -64,11 +64,12 @@ class SDE:
     def discretize(
         self, x: Tensor, t: Tensor, cond: Tensor, dt: Optional[float] = None
     ) -> Tuple[Tensor, Tensor]:
-        """Euler-Maruyama step: x_{i+1} = x_i + f dt + g sqrt(dt) z."""
+        """Euler-Maruyama step: x_{i+1} = x_i + f dt + g sqrt(dt) z. ``dt``
+        may be a 0-d tensor (an exported step program's input)."""
         if dt is None:
             dt = 1.0 / self.N
         drift, diffusion = self.sde(x, t, cond)
-        return drift * dt, diffusion * math.sqrt(float(dt))
+        return drift * dt, diffusion * (dt**0.5 if torch.is_tensor(dt) else math.sqrt(float(dt)))
 
     def copy(self, **updates) -> "SDE":
         return dataclasses.replace(self, **updates)

@@ -35,8 +35,15 @@ def symlink_force(target, link_name) -> None:
 
 
 def atomic_save(obj, path: Path) -> None:
+    """``torch.save`` to a temporary file moved into place: a write that
+    fails or is cut leaves no file under ``path`` (and no temporary one
+    where it fails)."""
     tmp = path.with_name(path.name + f".{os.getpid()}.tmp")
-    torch.save(obj, tmp)
+    try:
+        torch.save(obj, tmp)
+    except BaseException:
+        tmp.unlink(missing_ok=True)
+        raise
     os.replace(tmp, path)
 
 

@@ -216,6 +216,24 @@ def make_loss_fn(score_model, sde, loss_cfg: LossConfig) -> Callable:
     return loss_fn
 
 
+def apply_gradients(state: TrainState, clipper, ema_decay: float):
+    """The update after ``loss.backward()``: every parameter's gradient
+    (zero where it has none) clipped, the optimizer's step, the EMA where
+    that step was applied; the gradients are released. Returns (gradient
+    norm, clipped norm)."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in state.params]
+    if clipper is not None:
+        state.clip_state, (gnorm, thresh) = clipper(grads, state.clip_state)
+        clipped = torch.minimum(gnorm, thresh)
+    else:
+        gnorm = clipped = grad_norm(grads)
+    if state.optimizer.update(state.params, grads):
+        state.ema.update(state.params, ema_decay)
+    for p in state.params:
+        p.grad = None
+    return gnorm, clipped
+
+
 def make_train_step(score_model: nn.Module, sde, loss_cfg: LossConfig, optim_cfg: OptimConfig,
                     seed: int) -> Callable:
     """The train step: (state, mix, target, sample_weight=None, draws=None)
@@ -232,16 +250,7 @@ def make_train_step(score_model: nn.Module, sde, loss_cfg: LossConfig, optim_cfg
         gen = step_generator(seed, state.step, mix.device)
         loss = loss_fn(Draws(gen, draws), mix, target, sample_weight)
         loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in state.params]
-        if clipper is not None:
-            state.clip_state, (gnorm, thresh) = clipper(grads, state.clip_state)
-            clipped = torch.minimum(gnorm, thresh)
-        else:
-            gnorm = clipped = grad_norm(grads)
-        if state.optimizer.update(state.params, grads):
-            state.ema.update(state.params, optim_cfg.ema_decay)
-        for p in state.params:
-            p.grad = None
+        gnorm, clipped = apply_gradients(state, clipper, optim_cfg.ema_decay)
         lr = sched(state.step // optim_cfg.accumulate_grad_batches)
         state.step += 1
         return {"train/score_loss": loss.detach(), "grad/norm": gnorm, "grad/clipped_norm": clipped,

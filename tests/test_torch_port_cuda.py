@@ -513,3 +513,90 @@ def test_engine_and_http_on_the_card(dev, tmp_path):
         with urllib.request.urlopen(req, timeout=300) as resp:
             est, sr = load_wav_bytes(resp.read())
     assert sr == 8000 and est.shape == (2, 4000) and np.isfinite(est).all()
+
+
+# --- distillation and the export artifact --------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_custom_ops_on_the_card_equal_the_kernel_calls(dev, dtype):
+    """torch.ops.diffsep.* on CUDA tensors launch the kernels themselves: the
+    same bits as the wrappers' kernel calls, one counted launch each."""
+    x, k, bias = _conv_inputs(dev, dtype, (2, 16, 20, 64, 128))
+    _build.reset_counts()
+    got = torch.ops.diffsep.conv3x3(x, k, bias)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {"conv3x3": 1}
+    assert torch.equal(got, conv3x3._forward(x, k, bias))
+    xf = torch.randn((2, 16, 20, 64), generator=torch.Generator(device=dev).manual_seed(1), device=dev).to(dtype)
+    for op, args, up in ((torch.ops.diffsep.fir_down2x, (xf, TAPS_DOWN, False), False),
+                         (torch.ops.diffsep.fir_up2x, (xf, tuple(2 * t for t in TAPS_DOWN), (0, 0), False), True)):
+        _build.reset_counts()
+        got = op(*args)
+        torch.cuda.synchronize()
+        assert dict(_build.launch_counts) == {"fir_up2x" if up else "fir_down2x": 1}
+        assert torch.equal(got, fir_resample2x._resample(xf, args[1], up))
+
+
+def test_exported_artifact_on_the_card_equals_the_live_model(dev, tmp_path):
+    """An artifact exported on the card: the same estimates as the live
+    separate_masked on the same seed, the kernels launched inside the
+    exported program per evaluation as in the live model."""
+    from diffsep_tpu_torch.export import export_separator, load_separator
+    from diffsep_tpu_torch.model import DiffSepModel
+
+    model = DiffSepModel(SMALL_F32, device=dev, seed=3)
+    rng = np.random.default_rng(7)
+    mix = (0.1 * rng.standard_normal((2, 1, 4000))).astype(np.float32)
+    mix[1, :, 2500:] = 0.0
+    n_valid = np.array([4000, 2500])
+    kw = dict(N=2, predictor_name="reverse_diffusion", corrector_name="ald2")
+    _build.reset_counts()
+    want, nfe = model.separate_masked(mix, n_valid, generator=torch.Generator(device=dev).manual_seed(5), **kw)
+    torch.cuda.synchronize()
+    live = dict(_build.launch_counts)
+    path = tmp_path / "small.dst"
+    export_separator(model, 2, 4000, out_path=path, **kw)
+    sep = load_separator(path)
+    assert sep.meta["device"] == "cuda" and nfe == 4
+    _build.reset_counts()
+    got = sep.call(5, mix, n_valid)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == live and live["conv3x3"] > 0
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    with pytest.raises(ValueError, match="exported on cuda"):
+        load_separator(path, device="cpu")
+
+
+def test_distill_loss_gradients_on_the_card_match_the_cpu(dev):
+    """distill_loss and the student's gradients of a small float32 model,
+    card against CPU on the same draws (the on-policy and prior-at-T inputs
+    included); the teacher takes no gradient on either."""
+    from diffsep_tpu_torch.model import DiffSepModel
+    from diffsep_tpu_torch.train.distill import DistillConfig, distill_loss, frozen_copy
+    from diffsep_tpu_torch.train.losses import Draws
+
+    b, n = 4, 2000
+    rng = np.random.default_rng(8)
+    tgt = torch.from_numpy(0.3 * rng.standard_normal((b, 2, n)).astype(np.float32))
+    mix = tgt.sum(dim=1, keepdim=True)
+    draws = {"i": np.array([0, 3, 1, 2]), "z": rng.standard_normal((b, 2, n)).astype(np.float32),
+             "use_prior": np.array([0.2, 0.9, 0.1, 0.3], np.float32),
+             "onpol_prior": rng.standard_normal((b, 2, n)).astype(np.float32),
+             "use_onpol": np.array([0.1, 0.7, 0.9, 0.2], np.float32)}
+    cfg = DistillConfig(n_student=4, on_policy_frac=0.5)
+    res = {}
+    for device in (dev, torch.device("cpu")):
+        model = DiffSepModel(SMALL_F32, device=device, seed=3)
+        teacher = frozen_copy(model.score_model)
+        with torch.no_grad():
+            for p in model.score_model.parameters():
+                p.add_(0.01)
+        loss = distill_loss(Draws(None, draws), model.sde, model.score_model, teacher, mix.to(device), tgt.to(device),
+                            cfg)
+        loss.backward()
+        assert all(p.grad is None for p in teacher.parameters())
+        res[device.type] = loss.item(), {k: p.grad.cpu() for k, p in model.score_model.named_parameters()
+                                         if p.grad is not None}
+    (l_card, g_card), (l_cpu, g_cpu) = res["cuda"], res["cpu"]
+    norm = torch.sqrt(sum((g.double() ** 2).sum() for g in g_cpu.values())).item()
+    assert abs(l_card - l_cpu) <= 1e-3 * abs(l_cpu)
+    assert max((g_card[k] - g).abs().max().item() for k, g in g_cpu.items()) <= 1e-3 * norm

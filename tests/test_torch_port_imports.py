@@ -34,4 +34,7 @@ def test_scan_covers_the_package():
                                        "serve_http.py", "loading.py", "eval_common.py", "streaming.py",
                                        "separate.py", "pc.py", "predictors.py", "correctors.py",
                                        "evaluate.py", "ouve.py", "mixsde.py", "vctk_demand.py",
-                                       "pesq_native.py", "metrics.py", "datamodule.py", "synthetic.py"}
+                                       "pesq_native.py", "metrics.py", "datamodule.py", "synthetic.py",
+                                       "distill.py", "export.py", "export_model.py"}
+    names = [str(p.relative_to(ROOT)) for p in FILES]
+    assert {"diffsep_tpu_torch/train/distill.py", "diffsep_tpu_torch/cli/distill.py"} <= set(names)

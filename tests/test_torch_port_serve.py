@@ -1,7 +1,7 @@
 """The port's serving entry point (diffsep_tpu_torch/cli/serve.py and
 cli/serve_http.py) on the CPU with a tiny model that
 diffsep_tpu_torch.cli.train trained for two steps: the cases of
-tests/test_serve.py (all but the export artifact, not ported yet), and a
+tests/test_serve.py (the export artifact's are in test_torch_port_export.py), and a
 parity case: the port's and the JAX package's engine front halves
 (bucketing, normalization, padding rows, scale_output, slicing), each with
 its sampler replaced by the same deterministic stand-in, give the same
