@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (diffsep_tpu_torch) on one GPU.
+"""Smoke run of the PyTorch/CUDA port (diffsep_tpu_torch) on one GPU (two
+data-parallel ranks share it in phase 10; they take two where there are).
 
     python3 chip_smoke.py [--report PATH]
 
@@ -77,6 +78,29 @@ Phases, each of which fails the run on any error:
      against its plain version in bf16; and distill_loss's gradients on the
      nf=32 float32 model, kernels vs plain on the card and card vs CPU.
 
+ 10. data parallelism and multi-device evaluation: two ranks, each a
+     process spawned here (over NCCL on two cards where there are two, else
+     over gloo on the one card), train the recipe through cli.train.train
+     and train.loop.fit (nf=128, bf16, DDP_BATCH rows each, accumulate 2,
+     DDP_STEPS micro-steps, one validation, one checkpoint, test=true on
+     DDP_TEST files): the ranks must be bit-identical after every optimizer
+     step, rank 0 the only writer, the test records merged in order, every
+     micro-step of every rank must launch TRAIN_PER_STEP kernels; ms per
+     micro-step, global samples/s and peak memory per rank are recorded.
+     The ranks then take the nf=32 float32 model's train step (two
+     micro-steps) and distillation step through DDP on their halves of a
+     batch and of its draws, held to one process on the whole batch within
+     DDP_TOL of the norms. Then cli.train with the published trainer=allgpus
+     (devices -1) for 2 micro-steps; a cli.train child (nf=32) sent SIGTERM
+     after its third micro-step must save a checkpoint at its step and
+     resume from it, here with trainer.profiler=true (a trace under the run
+     dir); and cli.evaluate_mp on phase 6's run dir (-d with two workers,
+     N=30, EVAL_MP_FILES files of 5 s), per utterance and with --batch-size
+     EVAL_MP_BATCH, then one worker the same ways (per utterance on half the
+     files), records merged in index order, launches exactly PER_EVAL x 60 x
+     the sampler runs, seconds per utterance recorded. Every new
+     kernel shape of these runs is held against its plain version in bf16.
+
 The last lines are the `{"kernels": [...]}` summary, then
 `{"ok": true, "device": {...}}`. With --report, every result (per shape,
 per dtype) is also written to PATH as JSON. It exits non-zero without a
@@ -90,6 +114,7 @@ import contextlib
 import itertools
 import json
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -139,6 +164,18 @@ ENH_BATCH, ENH_WARMUP, ENH_TIMED = 4, 2, 6
 # distillation (phase 9): the halving schedule from the phase-6 run, steps
 # per stage (the first of each untimed), and timed calls of the artifact
 DISTILL_STAGES, DISTILL_STEPS, ART_CALLS = (4, 2), 5, 3
+# data parallelism (phase 10): ranks, rows per rank (the recipe's 6 in
+# all), micro-steps (accumulation 2: 3 optimizer steps) and test files of
+# the DDP fit; the nf=32 float32 model of the DDP-vs-one-process updates and
+# their tolerance (of the norms); the preempted child's batch and width;
+# cli.evaluate_mp's test files and batch
+DDP_RANKS, DDP_BATCH, DDP_STEPS, DDP_TEST, DDP_TOL = 2, 3, 6, 4, 1e-3
+DDP_SMALL = {"score_model": {"backbone_args": {"nf": 32, "ch_mult": (1, 1, 2, 2), "num_res_blocks": 1,
+                                               "dtype": "float32"}}}
+PREEMPT_BATCH = 2
+PREEMPT_WIDTH = ["model.score_model.backbone_args.nf=32", "model.score_model.backbone_args.ch_mult=[1,1,2,2]",
+                 "model.score_model.backbone_args.num_res_blocks=1"]
+EVAL_MP_FILES, EVAL_MP_BATCH = 8, 4
 RECORD_KEYS = {"batch_idx", "si_sdr", "si_sir", "si_sar", "pesq", "stoi", "nfe", "runtime", "len_s"}
 # odd-sized FIR downs whose backward is the pads-(2, 2) up (repair F1), and
 # resampling calls that no kernel serves, run plain on the card (F2)
@@ -351,10 +388,14 @@ def loss_and_grads(model, draws, mix, tgt):
     return loss.item(), grads
 
 
-def counting_train_step(per_step):
+def counting_train_step(per_step, snapshots=None):
     """A stand-in for ``DiffSepModel.make_train_step`` whose train step
     appends each micro-step's launches (all and backward), kernel shapes,
-    batch shape and the peak memory after it to ``per_step``."""
+    batch shape and the peak memory after it to ``per_step``; and, where
+    ``snapshots`` is a list, a copy of the parameters on the card after
+    every applied optimizer step (hashed after the run by
+    ``params_digest``, so that no micro-step waits for it; the peak
+    leaves the copies out)."""
     import torch
 
     from diffsep_tpu_torch.model import DiffSepModel
@@ -362,8 +403,8 @@ def counting_train_step(per_step):
 
     make_train_step = DiffSepModel.make_train_step
 
-    def counted_train_step(self, seed):
-        train_step = make_train_step(self, seed)
+    def counted_train_step(self, seed, forward=None):
+        train_step = make_train_step(self, seed, forward=forward)
 
         def run(state, mix, target, *args, **kwargs):
             before = [collections.Counter(c) for c in
@@ -371,13 +412,25 @@ def counting_train_step(per_step):
             metrics = train_step(state, mix, target, *args, **kwargs)
             after = (_build.launch_counts, _build.backward_counts, _build.launch_shapes)
             launches, backward, shapes = (collections.Counter(a) - b for a, b in zip(after, before))
+            kept = sum(t.numel() * t.element_size() for t in snapshots or [])
+            peak = torch.cuda.max_memory_allocated() - kept if mix.is_cuda else 0
             per_step.append(dict(launches=dict(launches), backward=dict(backward), shapes=shapes,
-                                 batch=list(mix.shape), peak_gib=torch.cuda.max_memory_allocated() / 2**30))
+                                 batch=list(mix.shape), peak_gib=peak / 2**30))
+            if snapshots is not None and state.optimizer.mini_step == 0:
+                with torch.no_grad():
+                    snapshots.append(torch.cat([p.detach().reshape(-1).float() for p in state.params]))
             return metrics
 
         return run
 
     return counted_train_step
+
+
+def params_digest(flat):
+    """sha256 of a flat parameter copy's bytes (copied to the host)."""
+    import hashlib
+
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
 
 
 def train_speed(run_dir, warmup, timed, batch):
@@ -1411,6 +1464,373 @@ def distill_phase(dev, card, run_dir, tmp, small_pair, checked):
     return out, dict(total)
 
 
+# --- phase 10: data parallelism and multi-device evaluation ----------------
+def small_ddp_updates(dev, rank=0, world=1):
+    """The nf=32 float32 model's update through the train step (two
+    accumulated micro-steps, init hack 5) and the distillation step (one
+    step), on this rank's rows of a batch of 4 x 1 s and of its draws,
+    through DDP where ``world`` > 1. Returns each step's losses and gradient
+    norms, and Adam's moments after the update, on the host."""
+    import torch
+
+    from diffsep_tpu_torch.model import DiffSepModel
+    from diffsep_tpu_torch.parallel import mesh
+    from diffsep_tpu_torch.train import distill
+
+    rng = np.random.default_rng(21)
+    b, n = 4, FS
+    rows = slice(rank * b // world, (rank + 1) * b // world)
+    cfg = {"model": {"init_hack": 5, "init_hack_p": 0.5, "optimizer": {"lr": 1e-3}, **DDP_SMALL},
+           "trainer": {"accumulate_grad_batches": 2}}
+
+    def batch():
+        tgt = rng.standard_normal((b, 2, n)).astype(np.float32)
+        return torch.from_numpy(tgt.sum(axis=1, keepdims=True)), torch.from_numpy(tgt)
+
+    def take(x):
+        return torch.as_tensor(x)[rows].to(dev)
+
+    def randomized(config, seed):
+        cpu = DiffSepModel(config, device="cpu", seed=1)
+        randomize_(cpu.score_model, seed=seed)
+        model = DiffSepModel(config, device=dev, seed=1)
+        model.score_model.load_state_dict(cpu.score_model.state_dict())
+        return model
+
+    out = {}
+    model = randomized(cfg, 3)
+    state = model.init_state()
+    step = model.make_train_step(seed=0, forward=mesh.wrap_ddp(model.score_model, dev))
+    metrics = []
+    for _ in range(2):
+        mix, tgt = batch()
+        draws = {"mask": rng.uniform(size=b).astype(np.float32), "z0": rng.standard_normal((b, 2, n), np.float32),
+                 "z": rng.standard_normal((b, 2, n), np.float32),
+                 "shuffle": rng.uniform(size=(b, 2)).astype(np.float32),
+                 "time": rng.uniform(size=b).astype(np.float32)}
+        metrics.append(step(state, take(mix), take(tgt), draws={k: take(v) for k, v in draws.items()}))
+    out["train"] = dict(losses=[float(m["train/score_loss"]) for m in metrics],
+                        grad_norms=[float(m["grad/norm"]) for m in metrics],
+                        mu=[t.cpu() for t in state.optimizer.mu], nu=[t.cpu() for t in state.optimizer.nu])
+
+    model = randomized(cfg["model"], 4)  # no accumulation: one step updates
+    teacher = distill.frozen_copy(model.score_model)
+    with torch.no_grad():
+        for p in model.score_model.parameters():
+            p.add_(0.01)
+    state = model.init_state()
+    dstep = distill.make_distill_step(model.score_model, model.sde, model.optim_cfg, 0,
+                                      distill.DistillConfig(n_student=4),
+                                      forward=mesh.wrap_ddp(model.score_model, dev))
+    mix, tgt = batch()
+    draws = {"i": np.array([0, 3, 1, 2]), "z": rng.standard_normal((b, 2, n), np.float32),
+             "use_prior": np.array([0.2, 0.9, 0.1, 0.3], np.float32)}
+    m = dstep(state, teacher, take(mix), take(tgt), draws={k: take(v) for k, v in draws.items()})
+    out["distill"] = dict(losses=[float(m["distill/loss"])], grad_norms=[float(m["grad/norm"])],
+                          mu=[t.cpu() for t in state.optimizer.mu], nu=[t.cpu() for t in state.optimizer.nu])
+    return out
+
+
+def ddp_worker(rank, world, init_method, backend, card_index, overrides, out_dir):
+    """One rank of phase 10's data-parallel run (a process of its own): the
+    recipe's fit through ``cli.train.train`` with its launches per
+    micro-step and a digest after every optimizer step, then the nf=32
+    updates through DDP; writes rank<r>.json and small_rank<r>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from diffsep_tpu_torch.cli import train as train_cli
+    from diffsep_tpu_torch.config import compose
+    from diffsep_tpu_torch.model import DiffSepModel
+    from diffsep_tpu_torch.ops import _build
+    from diffsep_tpu_torch.train.checkpoints import CheckpointManager
+    from diffsep_tpu_torch.utils.distributed import initialize_distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # card_index None: the CPU, where there is no card
+    dev = torch.device("cpu") if card_index is None else torch.device("cuda", card_index)
+    initialize_distributed(backend=backend, device_type=dev.type, rank=rank, world_size=world,
+                           init_method=init_method, device_index=card_index)
+    per_step, snapshots, saves = [], [], []
+    save = CheckpointManager.save
+
+    def counted_save(self, step, *args, **kwargs):
+        saves.append(step)
+        return save(self, step, *args, **kwargs)
+
+    try:
+        _build.reset_counts()
+        with mock.patch.object(DiffSepModel, "make_train_step", counting_train_step(per_step, snapshots)), \
+                mock.patch.object(CheckpointManager, "save", counted_save):
+            state = train_cli.train(compose(overrides), overrides, str(dev))
+        digests = [params_digest(t) for t in snapshots]
+        del snapshots[:]
+        report = dict(rank=rank, step=state.step, digests=digests, saves=saves, launches=dict(_build.launch_counts),
+                      shapes=[[k, list(shape), cout] for k, shape, cout in _build.launch_shapes],
+                      per_step=[dict(launches=s["launches"], backward=s["backward"], batch=s["batch"])
+                                for s in per_step],
+                      peak_gib=max(s["peak_gib"] for s in per_step))
+        torch.save(small_ddp_updates(dev, rank, world), Path(out_dir) / f"small_rank{rank}.pt")
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(target, args_of, world, timeout_s):
+    """``world`` spawned processes of ``target(*args_of(rank))``; raises as
+    soon as one fails or the time is up (the others are terminated)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args_of(r)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout_s
+    try:
+        while True:
+            codes = [p.exitcode for p in procs]
+            assert not any(c not in (None, 0) for c in codes), f"rank exit codes {codes}"
+            if all(c == 0 for c in codes):
+                return
+            assert time.monotonic() < deadline, f"ranks still running after {timeout_s} s: {codes}"
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(timeout=30)
+
+
+def rel_err(got, want):
+    """max |got - want| over a list of tensors, over their global norm."""
+    import torch
+
+    norm = torch.sqrt(sum((w.double() ** 2).sum() for w in want)).item()
+    return max((g - w).abs().max().item() for g, w in zip(got, want)) / norm
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ddp_phase(dev, card, tmp, run_dir, data, checked):
+    """Phase 10: data parallelism and multi-device evaluation; see the
+    module docstring. ``run_dir`` and ``data`` are phase 6's run dir and
+    folder, ``checked`` the (kernel, shape, cout) keys earlier phases held
+    against the plain versions in bf16. Returns (report, launches over the
+    phase's main-path runs)."""
+    import torch
+
+    from diffsep_tpu_torch.cli import evaluate_mp
+    from diffsep_tpu_torch.cli import train as train_cli
+    from diffsep_tpu_torch.data.synthetic import write_wsj0_mix
+    from diffsep_tpu_torch.ops import _build
+
+    out, total, shapes = {}, collections.Counter(), set()
+    t_phase = time.perf_counter()
+    cards = [0, 1] if torch.cuda.device_count() >= DDP_RANKS else [0] * DDP_RANKS
+    backend = "nccl" if len(set(cards)) == DDP_RANKS else "gloo"
+    out["backend"], out["cards"] = backend, cards
+    log(f"[ddp] {DDP_RANKS} ranks on cards {cards}, process group backend {backend} ({card})")
+
+    # 1. the recipe's fit on 2 ranks, each spawned here
+    data10 = write_wsj0_mix(Path(tmp) / "wsj0_mix_ddp", {"train": 2 * DDP_RANKS * DDP_BATCH, "val": 5,
+                                                          "test": DDP_TEST}, seconds=SERVE_SECONDS, fs=FS, seed=10)
+    overrides = ["experiment=icassp-separation", f"path.datasets.wsj0_mix={data10}",
+                 f"path.exp_root={tmp}/exp_ddp", f"trainer.max_steps={DDP_STEPS}",
+                 f"trainer.check_val_every_n_epoch={DDP_STEPS // 2}",
+                 f"datamodule.train.dl_opts.batch_size={DDP_BATCH}", "model.valid_max_sep_batches=1", "test=true"]
+    log(f"[ddp] fit on {DDP_RANKS} ranks: cli.train.train {' '.join(overrides)}")
+    ddp_dir = Path(tmp) / "ddp_reports"
+    ddp_dir.mkdir()
+    init_method = f"tcp://127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    run_ranks(ddp_worker, lambda r: (r, DDP_RANKS, init_method, backend, cards[r], overrides, str(ddp_dir)),
+              DDP_RANKS, 600)
+    out["ranks_s"] = time.perf_counter() - t0
+    reports = [json.loads((ddp_dir / f"rank{r}.json").read_text()) for r in range(DDP_RANKS)]
+    run10 = next(Path(tmp, "exp_ddp").glob("*/*/train_log.jsonl")).parent
+    speed, rows = train_speed(run10, TRAIN_WARMUP, DDP_STEPS - TRAIN_WARMUP, DDP_RANKS * DDP_BATCH)
+    index = json.loads((run10 / "checkpoints" / "index.json").read_text())
+    parts = [json.loads((run10 / "test_results" / f"part{r}" / "test.json").read_text()) for r in range(DDP_RANKS)]
+    merged = json.loads((run10 / "test_results" / "test.json").read_text())
+    for r in reports:
+        total.update(r["launches"])
+        shapes |= {(k, tuple(shape), cout) for k, shape, cout in r["shapes"]}
+    want = {k: sum(v) for k, v in TRAIN_PER_STEP.items()}
+    want_bwd = {k: v[1] for k, v in TRAIN_PER_STEP.items() if v[1]}
+    out["fit"] = dict(**speed, peak_gib_per_rank=[r["peak_gib"] for r in reports], validation=index,
+                      losses=[r["train/score_loss"] for r in rows], saves=[r["saves"] for r in reports],
+                      per_rank_micro_step=reports[0]["per_step"][-1], launches=[r["launches"] for r in reports])
+    log(f"[ddp] {DDP_STEPS} micro-steps of {DDP_RANKS} x {reports[0]['per_step'][0]['batch']} with validation, "
+        f"checkpoint and test=true on {DDP_TEST} files in {out['ranks_s']:.1f} s with start-up; timed "
+        f"{DDP_STEPS - TRAIN_WARMUP} after {TRAIN_WARMUP}: {speed['ms_per_micro_step']:.2f} ms per micro-step, "
+        f"{speed['samples_per_s']:.3f} global samples/s, peak per rank "
+        f"{', '.join('%.2f' % r['peak_gib'] for r in reports)} GiB ({backend}, {card})")
+    log(f"[ddp] losses {out['fit']['losses']}; validation {index}; checkpoints saved per rank "
+        f"{out['fit']['saves']}; launches per micro-step per rank {reports[0]['per_step'][-1]['launches']}, "
+        f"of them backward {reports[0]['per_step'][-1]['backward']}")
+    assert all(r["step"] == DDP_STEPS and len(r["per_step"]) == DDP_STEPS for r in reports), reports
+    assert all(s["launches"] == want and s["backward"] == want_bwd and s["batch"][0] == DDP_BATCH
+               for r in reports for s in r["per_step"]), [r["per_step"] for r in reports]
+    assert all(r["digests"] == reports[0]["digests"] for r in reports) and len(reports[0]["digests"]) == DDP_STEPS // 2
+    assert [r["saves"] for r in reports] == [[DDP_STEPS]] + [[]] * (DDP_RANKS - 1), out["fit"]["saves"]
+    assert list(index) == [str(DDP_STEPS)] and np.isfinite(index[str(DDP_STEPS)]["val/si_sdr"]), index
+    assert all(np.isfinite(out["fit"]["losses"])), out["fit"]["losses"]
+    assert [len(p) for p in parts] == [DDP_TEST // DDP_RANKS] * DDP_RANKS
+    assert [m["batch_idx"] for m in merged] == list(range(DDP_TEST))
+    assert [m["len_s"] for m in merged] == [m["len_s"] for p in parts for m in p]
+    assert all(np.isfinite(np.mean(m["si_sdr"])) and m["nfe"] == PROD_NFE for m in merged), merged
+    log(f"[ddp] ranks bit-identical after each of {len(reports[0]['digests'])} optimizer steps; one checkpoint, by "
+        f"rank 0; test.json merged from parts of {[len(p) for p in parts]} in order")
+
+    # 2. the DDP update against one process on the whole batch
+    one = small_ddp_updates(dev)
+    ranks = [torch.load(ddp_dir / f"small_rank{r}.pt", weights_only=False) for r in range(DDP_RANKS)]
+    small = {}
+    for kind in ("train", "distill"):
+        got = ranks[0][kind]
+        assert all(all(torch.equal(a, b) for a, b in zip(r[kind]["mu"] + r[kind]["nu"], got["mu"] + got["nu"]))
+                   for r in ranks), kind
+        small[kind] = dict(
+            loss_rel_err=max(abs(g - w) / abs(w) for g, w in zip(got["losses"], one[kind]["losses"])),
+            grad_norm_rel_err=max(abs(g - w) / w for g, w in zip(got["grad_norms"], one[kind]["grad_norms"])),
+            mu_rel_err=rel_err(got["mu"], one[kind]["mu"]), nu_rel_err=rel_err(got["nu"], one[kind]["nu"]),
+            tol=DDP_TOL)
+        log(f"[ddp] nf=32 f32 {kind} step, {DDP_RANKS} ranks (DDP, {backend}) vs one process on the whole batch: "
+            f"loss {small[kind]['loss_rel_err']:.3g}, grad norm {small[kind]['grad_norm_rel_err']:.3g} relative; "
+            f"Adam mu {small[kind]['mu_rel_err']:.3g}, nu {small[kind]['nu_rel_err']:.3g} of their norms "
+            f"(tol {DDP_TOL:g}); ranks bit-identical")
+        assert all(v <= DDP_TOL for k, v in small[kind].items() if k != "tol"), small[kind]
+    out["small_f32_ddp_check"] = small
+
+    # 3. the published all-GPU trainer file, unmodified, for 2 micro-steps
+    _build.reset_counts()
+    ov = ["experiment=icassp-separation", f"path.datasets.wsj0_mix={data}", f"path.exp_root={tmp}/exp_allgpus",
+          "trainer.max_steps=2", "model.valid_max_sep_batches=1"]
+    t0 = time.perf_counter()
+    state = train_cli.main(ov)
+    torch.cuda.synchronize()
+    run_all = next(Path(tmp, "exp_allgpus").glob("*/*/train_log.jsonl")).parent
+    launches = dict(_build.launch_counts)
+    total.update(launches)
+    shapes |= set(_build.launch_shapes)
+    out["allgpus"] = dict(seconds=time.perf_counter() - t0, devices=torch.cuda.device_count(), launches=launches,
+                          checkpoints=sorted(json.loads((run_all / "checkpoints" / "index.json").read_text())))
+    log(f"[ddp] cli.train {' '.join(ov)} (trainer=allgpus, devices -1 = {torch.cuda.device_count()} GPU): "
+        f"{out['allgpus']['seconds']:.1f} s, checkpoints {out['allgpus']['checkpoints']}, launches {launches}")
+    assert out["allgpus"]["checkpoints"] == ["2"], out["allgpus"]
+    if torch.cuda.device_count() == 1:
+        assert state.step == 2 and all(launches.get(k, 0) > 0 for k in PER_EVAL), (state.step, launches)
+
+    # 4. preemption: SIGTERM a cli.train child after its third micro-step,
+    # then resume in this process; 5. with the profiler on
+    data_p = write_wsj0_mix(Path(tmp) / "wsj0_mix_preempt", {"train": 3 * PREEMPT_BATCH, "val": 1},
+                            seconds=1, fs=FS, seed=12)
+    base = ["experiment=icassp-separation", f"path.datasets.wsj0_mix={data_p}", "trainer.devices=1",
+            "trainer.check_val_every_n_epoch=1000", f"datamodule.train.dl_opts.batch_size={PREEMPT_BATCH}",
+            *PREEMPT_WIDTH]
+    ov = [*base, f"path.exp_root={tmp}/exp_preempt", "trainer.max_steps=1000"]
+    code = ("import atexit, json, runpy, sys; from diffsep_tpu_torch.ops import _build; "
+            "atexit.register(lambda: print('LAUNCHES', json.dumps(dict(_build.launch_counts)), file=sys.stderr)); "
+            "runpy.run_module('diffsep_tpu_torch.cli.train', run_name='__main__', alter_sys=True)")
+    child = subprocess.Popen([sys.executable, "-c", code, *ov], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True, cwd=Path(__file__).resolve().parent)
+    t0 = time.perf_counter()
+    try:
+        while not list(Path(tmp).glob("exp_preempt/*/*/train_log.jsonl")):  # the first epoch: 3 micro-steps
+            assert child.poll() is None, child.communicate()[1][-3000:]
+            assert time.perf_counter() - t0 < 300, "no epoch after 300 s"
+            time.sleep(0.1)
+        child.send_signal(signal.SIGTERM)
+        _, err = child.communicate(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    assert child.returncode == 0, err[-3000:]
+    launches = json.loads(err.rsplit("LAUNCHES", 1)[1].splitlines()[0])
+    total.update(launches)
+    run_p = next(Path(tmp).glob("exp_preempt/*/*/train_log.jsonl")).parent
+    index = json.loads((run_p / "checkpoints" / "index.json").read_text())
+    (saved,) = [int(k) for k in index]
+    assert saved >= 3 and index[str(saved)] == {} and not (run_p / "checkpoints" / "best-model.pt").exists(), index
+    _build.reset_counts()
+    resumed = train_cli.main([*base, f"path.exp_root={tmp}/exp_resume", f"trainer.max_steps={saved + 2}",
+                              f"trainer.resume_from_checkpoint={run_p}", "trainer.profiler=true"])
+    torch.cuda.synchronize()
+    launches_r = dict(_build.launch_counts)
+    total.update(launches_r)
+    shapes |= set(_build.launch_shapes)  # the child's, at the same width and batch
+    run_r = next(Path(tmp).glob("exp_resume/*/*/train_log.jsonl")).parent
+    traces = sorted((run_r / "profile").glob("*.json"))
+    out["preempt"] = dict(seconds=time.perf_counter() - t0, saved_step=saved, resumed_step=resumed.step,
+                          launches=launches, resume_launches=launches_r,
+                          trace_mb=[p.stat().st_size / 1e6 for p in traces])
+    log(f"[ddp] preemption: SIGTERM after micro-step 3 of a cli.train child; checkpoint at step {saved} (no metrics, "
+        f"no best-model); resumed in this process to step {resumed.step} with trainer.profiler=true: trace "
+        f"{[p.name for p in traces]} ({out['preempt']['trace_mb']} MB); launches {launches}, resumed {launches_r}")
+    assert resumed.step == saved + 2 and not resumed.preempted and traces, out["preempt"]
+    assert all(launches.get(k, 0) > 0 for k in PER_EVAL) and all(launches_r.get(k, 0) > 0 for k in PER_EVAL)
+
+    # 6. cli.evaluate_mp on phase 6's run dir, per utterance and batched
+    write_wsj0_mix(data, {"test": EVAL_MP_FILES}, seconds=SERVE_SECONDS, fs=FS, seed=13)
+    out["evaluate_mp"] = {}
+    d_args = [str(c) for c in cards]
+    batched = ["--batch-size", str(EVAL_MP_BATCH)]
+    # (label, -d, other flags, files, sampler runs): two workers, then one
+    # worker beside them in the same call (per utterance on half the files)
+    for label, d, mode, files, runs in (
+            (f"{DDP_RANKS} workers, per utterance", d_args, [], EVAL_MP_FILES, EVAL_MP_FILES),
+            (f"{DDP_RANKS} workers, --batch-size {EVAL_MP_BATCH}", d_args, batched, EVAL_MP_FILES,
+             DDP_RANKS * -(-EVAL_MP_FILES // (DDP_RANKS * EVAL_MP_BATCH))),
+            ("1 worker, per utterance", ["0"], ["-l", str(EVAL_MP_FILES // 2)], EVAL_MP_FILES // 2,
+             EVAL_MP_FILES // 2),
+            (f"1 worker, --batch-size {EVAL_MP_BATCH}", ["0"], batched, EVAL_MP_FILES,
+             -(-EVAL_MP_FILES // EVAL_MP_BATCH))):
+        argv = [str(run_dir), "-d", *d, "-N", str(PROD_N), "-o", str(Path(tmp) / "eval_mp"), *mode]
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        out_dir = evaluate_mp.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+        total.update(launches)
+        shapes |= set(_build.launch_shapes)
+        records = json.loads((out_dir / "test.json").read_text())
+        runtime = [r["runtime"] for r in records.values()]
+        out["evaluate_mp"][label] = dict(wall_s=wall, s_per_utt_wall=wall / files,
+                                         s_per_utt_runtime=float(np.mean(runtime)), runtime=runtime, runs=runs,
+                                         launches=launches, dir=out_dir.name)
+        log(f"[ddp] cli.evaluate_mp RUN_DIR -d {' '.join(d)} -N {PROD_N} {' '.join(mode)} ({label}): {files} "
+            f"files of {SERVE_SECONDS} s in {wall:.1f} s with loading = {wall / files:.3f} s per utterance; "
+            f"runtime per utterance {np.mean(runtime):.3f} s (min {min(runtime):.3f}, max {max(runtime):.3f}); "
+            f"{runs} sampler runs, launches {launches} ({card})")
+        assert list(records) == [str(i) for i in range(files)], list(records)
+        assert all(r["nfe"] == PROD_NFE and np.isfinite(np.mean(r["si_sdr"])) for r in records.values())
+        assert launches == {k: v * PROD_NFE * runs for k, v in PER_EVAL.items()}, launches
+    # every kernel shape of these runs that earlier phases did not hold
+    checks = []
+    for i, (k, shape, cout) in enumerate(sorted(shapes - checked, key=str)):
+        r = check_kernel(k, shape, cout, "bfloat16", dev, 1000 + i, None, timed=False)
+        checks.append(r)
+        log(f"[ddp-kernel] {k} {shape}->{cout} bf16:{plan_text(r['plan'])} err {r['max_abs_err']:.3g} "
+            f"(tol {r['tol']:.3g}) untimed")
+    out["kernel_checks"] = checks
+    bad = [r for r in checks if not r["ok"]]
+    assert not bad, f"kernel mismatches at phase 10's shapes: {bad}"
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = dict(total)
+    log(f"[ddp] {len(checks)} new kernel shapes held; phase 10 took {out['seconds']:.1f} s; launches {dict(total)}")
+    return out, dict(total)
+
+
 def ptxas_lines(text):
     """nvcc's -Xptxas -v report, one instantiation at a time: its kernel (the
     mangled template arguments shortened) beside its register and spill lines."""
@@ -1615,13 +2035,17 @@ def main() -> int:
         # 9. distillation and the export artifact, on the run dir of phase 6
         checked |= {(r["kernel"], tuple(r["shape"]), r["cout"]) for r in report["enhance"]["kernel_checks"]}
         report["distill"], dist_counts = distill_phase(dev, card, train["run_dir"], tmp, (m_gpu, m_cpu), checked)
+        # 10. data parallelism and multi-device evaluation
+        checked |= {(r["kernel"], tuple(r["shape"]), r["cout"]) for r in report["distill"]["kernel_checks"]}
+        report["ddp"], ddp_counts = ddp_phase(dev, card, tmp, train["run_dir"], Path(tmp) / "wsj0_mix", checked)
 
     # summary per kernel: the bf16 (serving) times summed over one score
     # evaluation's launches at batch 2, and the bf16 times summed over one
     # training micro-step's launches (forward and backward) at batch 6 and
     # at the enhancement recipe's batch 4 x 3 s; launches over the main
     # paths: the serving run at N=30, the training run, the serving entry
-    # points, the enhancement phase and distillation with the artifact
+    # points, the enhancement phase, distillation with the artifact and
+    # phase 10 (its ranks' launches, reported by each rank's process)
     serve_counts = serve["reverse_diffusion+ald2 N=30"]["launches"]
     summary = []
     for k, meta in KERNELS.items():
@@ -1631,6 +2055,7 @@ def main() -> int:
         entry_rows = [r for r in report["serve_entry_points"]["kernel_checks"] if r["kernel"] == k]
         enh_rows = [r for r in report["enhance"]["kernel_checks"] if r["kernel"] == k]
         dist_rows = [r for r in report["distill"]["kernel_checks"] if r["kernel"] == k]
+        ddp_rows = [r for r in report["ddp"]["kernel_checks"] if r["kernel"] == k]
         if k == "fir_up2x":  # the down's backward at odd sizes runs the up kernel
             enh_rows += report["enhance"]["odd_fir_backward"]
         enh_tr = [r for r in enh_rows if "launches_per_micro_step" in r]
@@ -1643,8 +2068,9 @@ def main() -> int:
 
         summary.append(dict(
             name=k, route="cuda", source=meta["source"], replaces=meta["replaces"],
-            launches=serve_counts[k] + train["launches"][k] + entry_counts[k] + enh_counts[k] + dist_counts[k],
-            max_abs_err=max(r["max_abs_err"] for r in rows + tr + entry_rows + enh_rows + dist_rows),
+            launches=(serve_counts[k] + train["launches"][k] + entry_counts[k] + enh_counts[k] + dist_counts[k]
+                      + ddp_counts[k]),
+            max_abs_err=max(r["max_abs_err"] for r in rows + tr + entry_rows + enh_rows + dist_rows + ddp_rows),
             ms=per_eval_sum("ms"), plain_ms=per_eval_sum("plain_ms"),
             bound_ms=per_eval_sum("bound_ms"),
             bound_by="operations" if per_eval_sum("ops_ms") >= per_eval_sum("bytes_ms") else "bytes",
@@ -1652,7 +2078,9 @@ def main() -> int:
             launches_by_path={"serve N=30": serve_counts[k], "train": train["launches"][k],
                               "train backward": train["backward_launches"].get(k, 0),
                               "serve entry points": entry_counts[k], "enhance": enh_counts[k],
-                              "distill and artifact": dist_counts[k]},
+                              "distill and artifact": dist_counts[k],
+                              "ddp ranks, allgpus, preemption, evaluate_mp": ddp_counts[k]},
+            launches_per_ddp_micro_step_per_rank={"forward": TRAIN_PER_STEP[k][0], "backward": TRAIN_PER_STEP[k][1]},
             launches_per_distill_step={"forward": 3 * PER_EVAL[k], "backward": TRAIN_PER_STEP[k][1]},
             launches_per_micro_step={"forward": TRAIN_PER_STEP[k][0], "backward": TRAIN_PER_STEP[k][1]},
             train_ms_per_micro_step=per_step_sum("ms"), train_plain_ms=per_step_sum("plain_ms"),

@@ -17,7 +17,8 @@ one source); ``__no_proc__`` scores the unprocessed mixture of
 ``data/wsj0_mix``. The first ``--save-n`` utterances (default: all) are
 saved as wavs, with a figure of the reverse process where matplotlib is
 installed (without it, none, and a warning). It runs on CUDA unless
-``--device cpu``; several processes are not ported (``cli/evaluate_mp.py``).
+``--device cpu``. ``cli/evaluate_mp.py`` spreads a split over several
+devices and batches it.
 """
 from __future__ import annotations
 
@@ -33,7 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from ..data import DataLoader, NoisyDataset, WSJ0_mix
+from ..data import DataLoader, NoisyDataset, Subset, WSJ0_mix
+from ..parallel import mesh
 from ..train.ema import swapped
 from ..train.losses import normalize_batch
 from ..train.trainer import step_generator
@@ -85,7 +87,7 @@ def evaluate_split(model, dataset, split, output_dir: Path, fs: int, n_src: int 
     output_dir.mkdir(parents=True, exist_ok=True)
     fig_dir = output_dir / "fig" / split
     wav_dir = output_dir / "wav" / split
-    dl = DataLoader(dataset, batch_size=1, shuffle=False)
+    dl = DataLoader(dataset, batch_size=1, shuffle=False, num_shards=1, shard_index=0)
     results = []
     sampler_kwargs = dict(sampler_kwargs or {})
     figures = importlib.util.find_spec("matplotlib") is not None
@@ -206,15 +208,46 @@ def main(argv=None):
 
 def evaluate_datamodule(model, state, dm, output_dir):
     """The test split of ``dm`` scored with the EMA weights of ``state``
-    (cli/train.py's test=true), in one process: writes test.json and
-    test_summary.json under ``output_dir`` and returns (records, summary).
-    Sharding over processes waits for data parallelism."""
+    (cli/train.py's test=true): writes test.json and test_summary.json under
+    ``output_dir`` and returns (records, summary).
+
+    Under a process group of several ranks every rank scores a contiguous
+    range of the split into ``part<rank>/`` (Lightning's DistributedSampler
+    shards the reference's ``trainer.test``), then passes a barrier; rank 0
+    merges the records in the split's order, numbers ``batch_idx`` anew and
+    writes the single-process files. The other ranks return None."""
     if state is None:
         raise ValueError("evaluate_datamodule needs a train state with EMA weights")
     dataset = dm.datasets.get("test") or dm.test_dataloader().dataset
+    output_dir = Path(output_dir)
+    fs = int(model.config["fs"])
+    n_proc, rank = mesh.world_size(), mesh.rank()
     with swapped(state.ema, state.params):
-        return evaluate_split(model, dataset, "test", Path(output_dir), fs=int(model.config["fs"]),
-                              sampler_kwargs=dict(model.sampler_kwargs))
+        if n_proc == 1:
+            return evaluate_split(model, dataset, "test", output_dir, fs=fs,
+                                  sampler_kwargs=dict(model.sampler_kwargs))
+        per = -(-len(dataset) // n_proc)
+        start, stop = min(rank * per, len(dataset)), min((rank + 1) * per, len(dataset))
+        if stop > start:
+            evaluate_split(model, Subset(dataset, range(start, stop)), "test", output_dir / f"part{rank}",
+                           fs=fs, sampler_kwargs=dict(model.sampler_kwargs))
+    mesh.barrier()
+    if rank != 0:
+        return None
+    output_dir.mkdir(parents=True, exist_ok=True)
+    results = []
+    for i in range(n_proc):
+        part = output_dir / f"part{i}" / "test.json"
+        if part.exists():
+            results.extend(json.loads(part.read_text()))
+    for j, rec in enumerate(results):
+        rec["batch_idx"] = j
+    with open(output_dir / "test.json", "w") as f:
+        json.dump(results, f, indent=2)
+    summary = summarize(results)
+    with open(output_dir / "test_summary.json", "w") as f:
+        json.dump(summary, f, indent=2)
+    return results, summary
 
 
 if __name__ == "__main__":

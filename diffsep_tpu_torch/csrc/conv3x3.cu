@@ -687,9 +687,9 @@ void launch_reduce(const Args& a, const Shape& s, int splits, cudaStream_t strea
 template <int NWG, int BN, int STAGES, bool NARROW>
 cudaError_t launch_wgmma(const Args& a, const Shape& s, int splits, cudaStream_t stream) {
   auto kernel = conv3x3_wgmma_kernel<NWG, BN, STAGES, NARROW>;
-  // once per instantiation: allow the whole 227 KB a block may use
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  // once per instantiation and device: allow the whole 227 KB a block may use
+  static std::atomic<uint64_t> allowed{0};
+  const cudaError_t attr = hopper::allow_dynamic_smem(kernel, 232448, allowed);
   if (attr != cudaSuccess) return attr;
   const int k_tiles = 9 * s.Cin / SLICE;
   if (splits < 1 || splits > k_tiles || (splits > 1 && a.partial == nullptr)) return cudaErrorInvalidValue;
@@ -706,8 +706,8 @@ cudaError_t launch_wgmma(const Args& a, const Shape& s, int splits, cudaStream_t
 template <int MW, int BN, int STAGES>
 cudaError_t launch_tma(const Args& a, const Shape& s, int splits, cudaStream_t stream) {
   auto kernel = conv3x3_tma_kernel<MW, BN, STAGES>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  static std::atomic<uint64_t> allowed{0};
+  const cudaError_t attr = hopper::allow_dynamic_smem(kernel, 232448, allowed);
   if (attr != cudaSuccess) return attr;
   if (splits < 1 || splits > 9 * s.Cin / SLICE || (splits > 1 && a.partial == nullptr)) return cudaErrorInvalidValue;
   // x as (B, H, W, Cin) and the weight as (9 Cin, Cout), innermost first
@@ -734,8 +734,8 @@ cudaError_t launch_tma(const Args& a, const Shape& s, int splits, cudaStream_t s
 template <int STAGES>
 cudaError_t launch_tma_narrow(const Args& a, const Shape& s, cudaStream_t stream) {
   auto kernel = conv3x3_tma_narrow_kernel<STAGES>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  static std::atomic<uint64_t> allowed{0};
+  const cudaError_t attr = hopper::allow_dynamic_smem(kernel, 232448, allowed);
   if (attr != cudaSuccess) return attr;
   const size_t smem = tma_narrow_smem_bytes(STAGES, 9 * s.Cin / SLICE);
   if (smem > 232448) return cudaErrorInvalidValue;

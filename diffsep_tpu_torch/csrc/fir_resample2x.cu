@@ -445,9 +445,9 @@ cudaError_t launch_stream(const void* x, void* out, const Args& a, const Shape& 
 template <bool UP>
 cudaError_t launch_tma(const void* x, void* out, const Args& a, const Shape& s, const Taps& k, cudaStream_t stream) {
   auto kernel = fir2x_tma_kernel<UP>;
-  if (a.smem_bytes > 48 * 1024) {  // once per instantiation, where a ring needs more than the default
-    static const cudaError_t attr =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  if (a.smem_bytes > 48 * 1024) {  // once per instantiation and device, where a ring needs more than the default
+    static std::atomic<uint64_t> allowed{0};
+    const cudaError_t attr = hopper::allow_dynamic_smem(kernel, SMEM_LIMIT, allowed);
     if (attr != cudaSuccess) return attr;
   }
   const int tw = a.cols, steps = UP ? s.H : s.Ho, cols = UP ? s.W : s.Wo;

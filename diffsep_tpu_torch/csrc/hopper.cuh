@@ -4,11 +4,14 @@
 // shared-memory matrix descriptor, and warpgroup MMA (wgmma) for bf16 in,
 // f32 accumulators, one wrapper per N (the overload is chosen by the size of
 // the accumulator array: N / 2 floats per thread); on the host, the encoding
-// of a bf16 tensor map for TMA.
+// of a bf16 tensor map for TMA, and the dynamic shared-memory allowance per
+// device.
 #pragma once
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace hopper {
 
@@ -245,6 +248,22 @@ inline bool encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const c
   return encode && encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides, box, ones,
                           CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// cudaFuncSetAttribute acts on the calling thread's current device only, and
+// one process may launch on several (a thread per card): allow `bytes` of
+// dynamic shared memory for `kernel` on the current device, once per device
+// index, recorded in `done` (one bit per device; each kernel keeps its own).
+template <typename Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel kernel, int bytes, std::atomic<uint64_t>& done) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = device < 64 ? uint64_t(1) << device : 0;
+  if (bit != 0 && (done.load(std::memory_order_acquire) & bit) != 0) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 }  // namespace hopper

@@ -1,7 +1,9 @@
 """The datamodules: the config's dataset and loader options per split.
 
 Counterpart of ``WSJ0_mix_Module`` and ``Valentini_Module`` in
-``diffsep_tpu/data/datamodule.py``.
+``diffsep_tpu/data/datamodule.py``. The train loader is sharded over the
+process group's ranks; the validation and test loaders read the whole split
+on every rank, so every rank logs the same metrics.
 """
 from __future__ import annotations
 
@@ -29,10 +31,11 @@ class WSJ0_mix_Module:
         if split not in self.datasets:
             self.setup((split,))
         opts = dict(self.cfg.datamodule[split].get("dl_opts") or {})
+        shard = {} if split == "train" else {"num_shards": 1, "shard_index": 0}
         return DataLoader(
             self.datasets[split], batch_size=int(opts.get("batch_size", 1)),
             shuffle=bool(opts.get("shuffle", False)), num_workers=int(opts.get("num_workers", 0)),
-            seed=int(self.cfg.get("seed", 0)), pad_to_multiple=self.pad_to_multiple,
+            seed=int(self.cfg.get("seed", 0)), pad_to_multiple=self.pad_to_multiple, **shard,
         )
 
     def train_dataloader(self):

@@ -231,8 +231,11 @@ class DiffSepModel(nn.Module):
     def init_state(self) -> trainer.TrainState:
         return trainer.init_train_state(self.score_model, self.optim_cfg)
 
-    def make_train_step(self, seed: int):
-        return trainer.make_train_step(self.score_model, self.sde, self.loss_cfg, self.optim_cfg, seed)
+    def make_train_step(self, seed: int, forward: Optional[nn.Module] = None):
+        """The train step (``trainer.make_train_step``); ``forward`` is the
+        score model's DDP wrapper under data parallelism."""
+        return trainer.make_train_step(self.score_model, self.sde, self.loss_cfg, self.optim_cfg, seed,
+                                       forward=forward)
 
     def make_val_loss(self, seed: int):
         return trainer.make_val_score_loss(self.score_model, self.sde, self.loss_cfg, seed)

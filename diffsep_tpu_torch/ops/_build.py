@@ -42,6 +42,7 @@ backward_shapes: collections.Counter = collections.Counter()
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[tuple, Callable[..., int]] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -139,14 +140,16 @@ def count_launch(name: str, shape: tuple, cout=None, backward: bool = False) -> 
     output channels, for a kernel that changes them), made by an autograd
     backward where ``backward``."""
     key = (name, tuple(shape), cout)
-    launch_counts[name] += 1
-    launch_shapes[key] += 1
-    if backward:
-        backward_counts[name] += 1
-        backward_shapes[key] += 1
+    with _count_lock:
+        launch_counts[name] += 1
+        launch_shapes[key] += 1
+        if backward:
+            backward_counts[name] += 1
+            backward_shapes[key] += 1
 
 
 def reset_counts() -> None:
-    for counter in (launch_counts, launch_shapes, backward_counts, backward_shapes):
-        counter.clear()
+    with _count_lock:
+        for counter in (launch_counts, launch_shapes, backward_counts, backward_shapes):
+            counter.clear()
 

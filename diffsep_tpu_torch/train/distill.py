@@ -53,6 +53,7 @@ from typing import Callable, Dict, Mapping, Optional
 import torch
 from torch import nn
 
+from ..parallel import mesh
 from ..sampling.pc import make_timesteps
 from ..sampling.predictors import data_prediction, ddim_transition
 from ..sde.mixsde import mix_mats
@@ -218,25 +219,33 @@ def distill_loss(draws: Draws, sde, student_score_fn: Callable, teacher_score_fn
 
 
 def make_distill_step(student: nn.Module, sde, optim_cfg: OptimConfig, seed: int,
-                      distill_cfg: DistillConfig) -> Callable:
+                      distill_cfg: DistillConfig, forward: Optional[nn.Module] = None) -> Callable:
     """The distillation step: (state, teacher, mix, target, draws=None) ->
     metrics, updating ``state`` and the student's parameters in place with
     the score training's update (clip, optimizer, EMA on applied steps).
     ``teacher`` is a score module that takes no gradient; ``draws`` hands the
-    loss given draws. Step k draws from ``step_generator(seed, k)``."""
+    loss given draws. Step k draws from ``step_generator(seed, k)``.
+
+    Data-parallel distillation: ``forward`` is the student's DDP wrapper
+    (``parallel/mesh.wrap_ddp``), each rank passes its rows of the batch
+    (and of ``draws``) and its own frozen teacher, outside DDP; the update
+    then acts on the gradient averaged over the ranks, and the reported
+    loss is the mean over them."""
     clipper = make_clipper(optim_cfg.grad_clipper, optim_cfg.clip_max_norm, optim_cfg.autoclip_percentile)
+    student_fn = forward if forward is not None else student
+    rank = mesh.rank()
 
     def distill_step(state: TrainState, teacher: nn.Module, mix: Tensor, target: Tensor,
                      draws: Optional[Mapping] = None) -> Dict[str, Tensor]:
         for p in state.params:
             p.grad = None
         (mix, target), _, _ = normalize_batch(mix, target)
-        gen = step_generator(seed, state.step, mix.device)
-        loss = distill_loss(Draws(gen, draws), sde, student, teacher, mix, target, distill_cfg)
+        gen = step_generator(seed, state.step, mix.device, rank)
+        loss = distill_loss(Draws(gen, draws), sde, student_fn, teacher, mix, target, distill_cfg)
         loss.backward()
         gnorm, _ = apply_gradients(state, clipper, optim_cfg.ema_decay)
         state.step += 1
-        return {"distill/loss": loss.detach(), "grad/norm": gnorm}
+        return {"distill/loss": mesh.all_reduce_mean(loss.detach().clone()), "grad/norm": gnorm}
 
     return distill_step
 

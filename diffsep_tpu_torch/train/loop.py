@@ -1,6 +1,7 @@
-"""The fit loop: epochs, validation, logging, checkpoints, resume.
+"""The fit loop: epochs, validation, logging, checkpoints, resume,
+preemption.
 
-Counterpart of ``diffsep_tpu/train/loop.py`` on one device:
+Counterpart of ``diffsep_tpu/train/loop.py``:
   * ``hparams.yaml`` (the composed config) in the run dir;
   * scalars at the JAX package's cadence, to tensorboard where tensorboardX
     is importable, else nowhere: train/score_loss every ``log_every``
@@ -12,18 +13,36 @@ Counterpart of ``diffsep_tpu/train/loop.py`` on one device:
     (after a ``torch.cuda.synchronize()``, whose time it records as
     ``synced_s``), so no micro-step waits for the card to report;
   * checkpoints with top-k by ``model.main_val_loss``, best-model and
-    latest symlinks, resume and warm start.
+    latest symlinks, resume and warm start;
+  * preemption (``trainer.preempt_save``, on by default): SIGTERM sets a
+    flag, the ranks agree on it (an all-reduce every
+    ``trainer.preempt_sync_every`` micro-steps; one process looks every
+    micro-step), then the run saves a checkpoint at once, without metrics
+    and without validation, and stops; ``resume_from_checkpoint=latest``
+    goes on from it;
+  * ``trainer.profiler: true``: a ``torch.profiler`` trace of the run under
+    ``<run dir>/profile/``, one file per rank;
+  * ``trainer.deterministic: true``: cuDNN (the conv's backward) in its
+    deterministic algorithms, benchmarking off; the hand kernels use no
+    atomics.
 
-Left out, as TPU- or JAX-specific: the device mesh and multi-host runs,
-the preemption handler, ``pad_batch_for_tpu`` (a batch of 6 runs as it is
-here) and the JAX profiler (``trainer.profiler`` raises; the port's
-profile is ``scripts/torch_port_profile.py --train``).
+Data parallelism (``parallel/mesh.py``): every rank holds rank 0's state
+(``replicate_global``) and trains its loader shard through the DDP wrapper;
+rank 0 alone writes hparams, tensorboard, ``train_log.jsonl`` and the
+checkpoints, into the run dir all ranks share, and every rank passes a
+barrier after each save. Every rank validates on the whole validation
+split, as the JAX package's processes do, and all take rank 0's metrics, so
+they agree on "best".
+
+Left out: ``pad_batch_for_tpu``, which exists for a TPU layout (a batch of
+6 runs as it is here), and ``trainer.strategy: fsdp`` (it raises).
 """
 from __future__ import annotations
 
 import contextlib
 import json
 import logging
+import signal
 import time
 from pathlib import Path
 from typing import Optional
@@ -33,6 +52,8 @@ import torch
 import yaml
 
 from ..config.compose import to_dict
+from ..parallel import mesh
+from ..utils.distributed import is_rank_zero
 from .checkpoints import CheckpointManager, load_payload
 from .ema import swapped
 from .trainer import step_generator
@@ -114,28 +135,101 @@ def _flush(records, workdir: Path, t_fit: float) -> None:
     records.clear()
 
 
+class _PreemptFlag:
+    """Set by SIGTERM while installed (the main thread only: elsewhere
+    ``signal.signal`` raises, and the flag is never set)."""
+
+    def __init__(self):
+        self.set = False
+        self._prev = None
+
+    def _on_signal(self, signum, frame):
+        self.set = True
+        log.warning("received signal %d: checkpointing and stopping at the next step boundary", signum)
+
+    def __enter__(self):
+        try:
+            self._prev = signal.signal(signal.SIGTERM, self._on_signal)
+        except ValueError:  # not the main thread
+            self._prev = None
+        return self
+
+    def __exit__(self, *exc):
+        if self._prev is not None:
+            signal.signal(signal.SIGTERM, self._prev)
+
+    def agreed(self, step: int, sync_every: int) -> bool:
+        """Whether to stop now. The ranks must agree before the save (the
+        signal may reach one of them only), so under data parallelism they
+        all-reduce the flag at the same micro-steps, every ``sync_every``."""
+        if mesh.world_size() == 1:
+            return self.set
+        if step % sync_every != 0:
+            return False
+        return mesh.any_rank(self.set)
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic(on: bool):
+    """cuDNN's deterministic algorithms and no benchmarking inside the
+    block where ``on``; the process's settings after it."""
+    if not on:
+        yield
+        return
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+@contextlib.contextmanager
+def _profiled(on: bool, device: torch.device, out_dir: Path):
+    """A ``torch.profiler`` trace of the block, written to
+    ``out_dir/trace_rank<r>.json`` after it, where ``on``."""
+    if not on:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=activities) as prof:
+        yield
+    out_dir.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out_dir / f"trace_rank{mesh.rank()}.json"))
+
+
 def fit(model, datamodule, workdir, config, seed: int = 0, max_epochs: Optional[int] = None,
         max_steps: Optional[int] = None, resume=False, log_every: int = 10, grad_log_every: int = 25,
         state=None, init_params=None, init_ema_params=None):
     """Train ``model`` on ``datamodule``; ``config`` is the composed tree
-    (its ``trainer`` node sets epochs, steps and validation). Returns the
-    final TrainState."""
+    (its ``trainer`` node sets epochs, steps, validation, preemption,
+    profiling and determinism). Under a process group of several ranks
+    every rank calls it, with the same arguments and the run dir they share.
+    Returns the final TrainState (``preempted`` set where SIGTERM stopped
+    it)."""
     workdir = Path(workdir)
-    workdir.mkdir(parents=True, exist_ok=True)
-    with open(workdir / "hparams.yaml", "w") as f:
-        yaml.safe_dump({"config": to_dict(config)}, f)
+    rank_zero = is_rank_zero()
+    if rank_zero:
+        workdir.mkdir(parents=True, exist_ok=True)
+        with open(workdir / "hparams.yaml", "w") as f:
+            yaml.safe_dump({"config": to_dict(config)}, f)
+    mesh.barrier()
 
     cfg_trainer = config.get("trainer", {}) or {}
+    if cfg_trainer.get("strategy") == "fsdp":
+        raise mesh.fsdp_unsupported()
     if max_epochs is None:
         max_epochs = int(cfg_trainer.get("max_epochs", 1000))
     if max_steps is None and cfg_trainer.get("max_steps") is not None:
         max_steps = int(cfg_trainer["max_steps"])
-    if cfg_trainer.get("profiler", False):
-        raise NotImplementedError("trainer.profiler: profile with scripts/torch_port_profile.py --train")
     check_val_every_n_epoch = int(cfg_trainer.get("check_val_every_n_epoch", 1))
+    preempt_save = bool(cfg_trainer.get("preempt_save", True))
+    preempt_sync_every = max(int(cfg_trainer.get("preempt_sync_every", 25)), 1)
     anomaly = torch.autograd.detect_anomaly() if cfg_trainer.get("detect_anomaly", False) else contextlib.nullcontext()
 
-    logger = Logger(workdir / "tb")
+    logger = Logger(workdir / "tb" if rank_zero else None)
     ckpt = CheckpointManager(
         workdir / "checkpoints", max_to_keep=20,
         monitor=model.config.get("main_val_loss", "val/si_sdr"),
@@ -154,16 +248,30 @@ def fit(model, datamodule, workdir, config, seed: int = 0, max_epochs: Optional[
             log.info("resumed from %s at step %d", path, state.step)
         elif resume:
             log.warning("resume requested but %s has no checkpoint yet; starting fresh", ckpt.directory)
+    mesh.replicate_global(state)
 
-    train_step = model.make_train_step(seed)
+    device = model.device
+    train_step = model.make_train_step(seed, forward=mesh.wrap_ddp(model.score_model, device))
     val_loss_fn = model.make_val_loss(seed + 1)
     train_loader = datamodule.train_dataloader()
-    device = model.device
     step = state.step
-    stop = False
+    stop = preempted = False
     records = []  # (step, host start, metrics) not yet in train_log.jsonl
+
+    def save(metrics):
+        if rank_zero:
+            ckpt.save(step, {"model": model.score_model.state_dict(), "train_state": state.state_dict(),
+                             "config": to_dict(config)}, metrics)
+        mesh.barrier()
+
+    preempt = _PreemptFlag() if preempt_save else None
     t_fit = time.perf_counter()
-    with anomaly:
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_cudnn_deterministic(bool(cfg_trainer.get("deterministic", False))))
+        stack.enter_context(_profiled(bool(cfg_trainer.get("profiler", False)), device, workdir / "profile"))
+        stack.enter_context(anomaly)
+        if preempt is not None:
+            stack.enter_context(preempt)
         for epoch in range(max_epochs):
             for mix, target in train_loader:
                 t = time.perf_counter()
@@ -178,16 +286,26 @@ def fit(model, datamodule, workdir, config, seed: int = 0, max_epochs: Optional[
                 if max_steps is not None and step >= max_steps:
                     stop = True
                     break
-            _flush(records, workdir, t_fit)
-            if (epoch + 1) % check_val_every_n_epoch == 0 or stop:
-                val_metrics = validate(model, datamodule, state, val_loss_fn, seed + 2)
+                if preempt is not None and preempt.agreed(step, preempt_sync_every):
+                    stop = preempted = True
+                    break
+            if rank_zero:
+                _flush(records, workdir, t_fit)
+            records.clear()
+            if preempted:
+                # the grace period is short: save now, without validation; a
+                # checkpoint without metrics never becomes best-model
+                save({})
+                log.warning("preemption checkpoint saved at step %d", step)
+            elif (epoch + 1) % check_val_every_n_epoch == 0 or stop:
+                val_metrics = mesh.broadcast_object(validate(model, datamodule, state, val_loss_fn, seed + 2))
                 log.info("step %d: %s", step, val_metrics)
                 logger.log_metrics(val_metrics, step)
-                ckpt.save(step, {"model": model.score_model.state_dict(), "train_state": state.state_dict(),
-                                 "config": to_dict(config)}, val_metrics)
+                save(val_metrics)
             if stop:
                 break
     logger.close()
+    state.preempted = preempted
     return state
 
 

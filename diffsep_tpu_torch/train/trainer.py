@@ -19,6 +19,12 @@ projection's W, which takes no gradient (the JAX package's stop_gradient):
 its gradient is zero, so Adam leaves it where it is and AdamW decays it, as
 optax does. State is updated in place; step counters are host integers and
 every tensor stays on the card, so a micro-step never waits for it.
+
+Under data parallelism (``parallel/mesh.py``) the loss calls the score
+model through its DDP wrapper, which averages the gradients over the ranks
+in every micro-step's backward. Steps 2-5 then act on the global gradient,
+as they do in the JAX package's dp step: the clip binds on the global norm,
+not on each rank's, and every rank applies the same update.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence
 import torch
 from torch import nn
 
+from ..parallel import mesh
 from .clippers import AutoClipState, grad_norm, make_clipper
 from .ema import EMA
 from .losses import Draws, normalize_batch, training_loss
@@ -166,6 +173,8 @@ class TrainState:
     optimizer: Optimizer
     ema: EMA
     clip_state: Optional[AutoClipState]
+    # set by train.loop.fit when it stopped for a preemption signal (not saved)
+    preempted: bool = False
 
     def state_dict(self) -> dict:
         clip = None
@@ -193,11 +202,13 @@ def init_train_state(score_model: nn.Module, cfg: OptimConfig) -> TrainState:
     )
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+def step_generator(seed: int, step: int, device, rank: int = 0) -> torch.Generator:
     """The generator of one step's draws (the JAX package's fold_in(key,
     step)): seeded from (seed, step) alone, so a resumed run draws what an
-    uninterrupted one would."""
-    return torch.Generator(device=device).manual_seed((seed * 0x9E3779B1 + step) % (1 << 63))
+    uninterrupted one would; a data-parallel rank adds its ``rank``, so the
+    ranks draw for their rows independently (rank 0 draws what one process
+    does)."""
+    return torch.Generator(device=device).manual_seed((seed * 0x9E3779B1 + step + rank * 0x632BE5AB) % (1 << 63))
 
 
 def make_loss_fn(score_model, sde, loss_cfg: LossConfig) -> Callable:
@@ -235,26 +246,31 @@ def apply_gradients(state: TrainState, clipper, ema_decay: float):
 
 
 def make_train_step(score_model: nn.Module, sde, loss_cfg: LossConfig, optim_cfg: OptimConfig,
-                    seed: int) -> Callable:
+                    seed: int, forward: Optional[nn.Module] = None) -> Callable:
     """The train step: (state, mix, target, sample_weight=None, draws=None)
     -> metrics, updating ``state`` and the model's parameters in place.
-    ``draws`` hands the loss given draws (see ``losses.Draws``)."""
-    loss_fn = make_loss_fn(score_model, sde, loss_cfg)
+    ``draws`` hands the loss given draws (see ``losses.Draws``); under data
+    parallelism, this rank's rows of them. ``forward`` is the module the
+    loss calls, the DDP wrapper of ``score_model`` under data parallelism
+    (``mesh.wrap_ddp``); the reported loss is then the mean over the ranks,
+    the global batch's."""
+    loss_fn = make_loss_fn(forward if forward is not None else score_model, sde, loss_cfg)
     clipper = make_clipper(optim_cfg.grad_clipper, optim_cfg.clip_max_norm, optim_cfg.autoclip_percentile)
     sched = make_lr_schedule(optim_cfg)
+    rank = mesh.rank()
 
     def train_step(state: TrainState, mix: Tensor, target: Tensor, sample_weight=None,
                    draws: Optional[Mapping] = None) -> Dict[str, object]:
         for p in state.params:
             p.grad = None
-        gen = step_generator(seed, state.step, mix.device)
+        gen = step_generator(seed, state.step, mix.device, rank)
         loss = loss_fn(Draws(gen, draws), mix, target, sample_weight)
         loss.backward()
         gnorm, clipped = apply_gradients(state, clipper, optim_cfg.ema_decay)
         lr = sched(state.step // optim_cfg.accumulate_grad_batches)
         state.step += 1
-        return {"train/score_loss": loss.detach(), "grad/norm": gnorm, "grad/clipped_norm": clipped,
-                "grad/step_size": lr * clipped, "lr": lr}
+        return {"train/score_loss": mesh.all_reduce_mean(loss.detach().clone()), "grad/norm": gnorm,
+                "grad/clipped_norm": clipped, "grad/step_size": lr * clipped, "lr": lr}
 
     return train_step
 

@@ -424,6 +424,57 @@ def test_small_model_train_step_on_the_card_matches_the_cpu(dev):
         assert err <= 1e-3 * norm, (key, err, norm)
 
 
+def test_autoclip_and_schedules_on_the_card_match_the_cpu(dev):
+    """AutoClip (its history on the card), linear warmup, the cosine decay
+    and AdamW over four accumulated micro-steps of a small float32 model,
+    card against CPU on the same weights and draws: each micro-step's loss,
+    gradient norm, clipped norm and learning rate, AutoClip's history and
+    count, and Adam's moments, within 1e-3 (relative, or of the norm)."""
+    from diffsep_tpu_torch.model import DiffSepModel
+
+    cfg = {"model": {"init_hack": 5, "init_hack_p": 0.5, "lr_warmup": 3,
+                     "optimizer": {"lr": 1e-3, "weight_decay": 0.01},
+                     "scheduler": {"_target_": "torch.optim.lr_scheduler.CosineAnnealingLR", "T_max": 10},
+                     "grad_clipper": {"_target_": "AutoClipper", "p": 50.0},
+                     "score_model": {"backbone_args": {"nf": 16, "ch_mult": (1, 2, 2), "num_res_blocks": 1,
+                                                       "attn_resolutions": (16,), "image_size": 64,
+                                                       "dtype": "float32"},
+                                     "stft_args": {"n_fft": 126, "hop_length": 32}}},
+           "trainer": {"accumulate_grad_batches": 2}}
+    rng = np.random.default_rng(5)
+    b, n = 2, 2000
+    steps = []
+    for m in ([0.1, 0.9], [0.9, 0.2], [0.3, 0.05], [0.7, 0.6]):
+        tgt = torch.from_numpy(rng.standard_normal((b, 2, n)).astype(np.float32))
+        steps.append((tgt.sum(dim=1, keepdim=True), tgt, {
+            "mask": np.array(m, np.float32), "z0": rng.standard_normal((b, 2, n)).astype(np.float32),
+            "z": rng.standard_normal((b, 2, n)).astype(np.float32),
+            "shuffle": rng.uniform(size=(b, 2)).astype(np.float32), "time": rng.uniform(size=b).astype(np.float32)}))
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        model = DiffSepModel(cfg, device=device, seed=3)
+        assert model.optim_cfg.grad_clipper == "autoclip" and model.optim_cfg.scheduler == "cosine"
+        state = model.init_state()
+        step = model.make_train_step(seed=0)
+        metrics = [step(state, mix.to(device), tgt.to(device), draws=d) for mix, tgt, d in steps]
+        assert state.clip_state.history.device.type == device.type
+        runs[device.type] = dict(
+            metrics=[{k: float(v) for k, v in m.items()} for m in metrics],
+            history=state.clip_state.history[:state.clip_state.count].cpu(), count=state.clip_state.count,
+            mu=[t.cpu() for t in state.optimizer.mu], nu=[t.cpu() for t in state.optimizer.nu])
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert card["count"] == cpu["count"] == 4
+    assert torch.allclose(card["history"], cpu["history"], rtol=1e-3)
+    for m_card, m_cpu in zip(card["metrics"], cpu["metrics"]):
+        assert m_card["lr"] == m_cpu["lr"]
+        for key in ("train/score_loss", "grad/norm", "grad/clipped_norm", "grad/step_size"):
+            assert abs(m_card[key] - m_cpu[key]) <= 1e-3 * abs(m_cpu[key]), (key, m_card, m_cpu)
+    for key in ("mu", "nu"):
+        norm = torch.sqrt(sum((t.double() ** 2).sum() for t in cpu[key])).item()
+        err = max((a - b_).abs().max().item() for a, b_ in zip(card[key], cpu[key]))
+        assert err <= 1e-3 * norm, (key, err, norm)
+
+
 # --- serving entry points ------------------------------------------------
 SMALL_F32 = {"score_model": {"backbone_args": {
     "nf": 16, "ch_mult": (1, 2, 2), "num_res_blocks": 1, "attn_resolutions": (16,),
@@ -600,3 +651,110 @@ def test_distill_loss_gradients_on_the_card_match_the_cpu(dev):
     norm = torch.sqrt(sum((g.double() ** 2).sum() for g in g_cpu.values())).item()
     assert abs(l_card - l_cpu) <= 1e-3 * abs(l_cpu)
     assert max((g_card[k] - g).abs().max().item() for k, g in g_cpu.items()) <= 1e-3 * norm
+
+
+# --- data parallelism and multi-device evaluation -------------------------
+@pytest.fixture
+def one_rank_group(dev):
+    """A one-rank NCCL process group on the card, for the length of a test."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    try:
+        yield dist
+    finally:
+        dist.destroy_process_group()
+
+
+def test_kernels_under_ddp_give_the_undistributed_gradients(one_rank_group, dev):
+    """The training loss of a small float32 model through a one-rank DDP
+    wrapper (conv and FIR kernels forward, the FIR kernels and cuDNN
+    backward, the gradient through DDP's buckets) against the same loss
+    without DDP, cuDNN deterministic: every parameter's gradient within
+    1e-6 of the gradient norm, every kernel launched in both."""
+    from diffsep_tpu_torch.model import DiffSepModel
+    from diffsep_tpu_torch.train.losses import Draws
+    from diffsep_tpu_torch.train.trainer import make_loss_fn
+
+    model = DiffSepModel({"init_hack": 5, "init_hack_p": 0.5, **SMALL_F32}, device=dev, seed=3)
+    rng = np.random.default_rng(2)
+    b, n = 2, 2000
+    tgt = torch.from_numpy(rng.standard_normal((b, 2, n)).astype(np.float32)).to(dev)
+    mix = tgt.sum(dim=1, keepdim=True)
+    draws = {"mask": np.array([0.1, 0.9], np.float32), "z0": rng.standard_normal((b, 2, n)).astype(np.float32),
+             "z": rng.standard_normal((b, 2, n)).astype(np.float32),
+             "shuffle": rng.uniform(size=(b, 2)).astype(np.float32), "time": rng.uniform(size=b).astype(np.float32)}
+    ddp = torch.nn.parallel.DistributedDataParallel(model.score_model, device_ids=[dev.index or 0],
+                                                    broadcast_buffers=False)
+    grads, counts = {}, {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, fwd in (("ddp", ddp), ("plain", model.score_model)):
+            model.score_model.zero_grad(set_to_none=True)
+            _build.reset_counts()
+            make_loss_fn(fwd, model.sde, model.loss_cfg)(Draws(None, draws), mix, tgt).backward()
+            torch.cuda.synchronize()
+            counts[name] = (dict(_build.launch_counts), dict(_build.backward_counts))
+            grads[name] = {k: p.grad.clone() for k, p in model.score_model.named_parameters() if p.grad is not None}
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    assert grads["ddp"].keys() == grads["plain"].keys()
+    norm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads["plain"].values())).item()
+    err = max((grads["ddp"][k] - g).abs().max().item() for k, g in grads["plain"].items())
+    assert err <= 1e-6 * norm, (err, norm)
+    assert counts["ddp"] == counts["plain"] and all(counts["ddp"][0].get(k, 0) > 0 for k in
+                                                    ("conv3x3", "fir_down2x", "fir_up2x"))
+
+
+def test_kernels_launch_on_every_card(dev):
+    """The conv plans that need more than 48 KB of shared memory (wgmma, tma,
+    tma_narrow: 129-193 KB) and the FIR tma plan launch on each visible card
+    of one process in turn, each against its plain version: the
+    shared-memory allowance is set per device. With one card this checks
+    that card alone."""
+    conv_shapes = [(2, 16, 20, 320, 256), (2, 128, 160, 256, 256), (1, 130, 131, 128, 6)]
+    for index in range(torch.cuda.device_count()):
+        card = torch.device("cuda", index)
+        for shape in conv_shapes:
+            x, k, bias = _conv_inputs(card, torch.bfloat16, shape)
+            _close(conv3x3.conv3x3(x, k, bias), conv3x3.conv3x3_plain(x, k, bias), torch.bfloat16)
+        for up in (False, True):
+            x, taps, want = _fir_case(card, torch.bfloat16, (2, 128, 160, 128), up)
+            assert fir_resample2x.plan_fir2x(*x.shape, torch.bfloat16, up, True).variant == "tma"
+            got = (fir_resample2x.fir_up2x if up else fir_resample2x.fir_down2x)(x, taps)
+            _close(got, want, torch.bfloat16)
+        torch.cuda.synchronize(card)
+
+
+def test_threaded_sharded_separate_launches_exactly(dev):
+    """make_sharded_separate over two model copies (two cards where there
+    are two, else one card twice), one thread each: the launches are twice
+    one copy's on its half of the batch, exactly, and the estimates equal
+    one call's on the same noise within 1e-4 of scale."""
+    from diffsep_tpu_torch.model import DiffSepModel
+    from diffsep_tpu_torch.parallel.shard_eval import make_sharded_separate
+
+    devices = [0, 1] if torch.cuda.device_count() >= 2 else [0, 0]
+    model = DiffSepModel(SMALL_F32, device=torch.device("cuda", devices[0]), seed=3)
+    rng = np.random.default_rng(4)
+    b, n, N = 4, 4000, 3
+    mix = (0.3 * rng.standard_normal((b, 1, n))).astype(np.float32)
+    noise = _pc_noise(rng, (b, 2, n), N)
+    _build.reset_counts()
+    want, nfe = model.separate(mix[:2], noise={"prior": noise["prior"][:2], "corrector": noise["corrector"][:, :, :2],
+                                              "predictor": noise["predictor"][:, :2]}, N=N)
+    torch.cuda.synchronize()
+    one = dict(_build.launch_counts)
+    run = make_sharded_separate(model, [torch.device("cuda", d) for d in devices], N=N)
+    _build.reset_counts()
+    got, got_nfe = run(mix, noise=noise)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {k: 2 * v for k, v in one.items()} and got_nfe == nfe == 2 * N
+    assert (got[:2] - want.cpu()).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert torch.isfinite(got).all() and got.shape == (b, 2, n)

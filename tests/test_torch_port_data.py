@@ -80,10 +80,11 @@ def _normalized(node):
 def test_compose_matches_jax_tree(overrides):
     got, want = _normalized(dict(compose(overrides))), dict(jax_compose(overrides))
     assert got["trainer"].pop("accelerator") == "gpu" and want["trainer"].pop("accelerator") == "tpu"
-    assert got["trainer"]["devices"] == 1
-    if overrides:  # allgpus: every chip in a data-parallel mesh there, one GPU here
-        assert want["trainer"].pop("devices") == -1 and want["trainer"].pop("strategy") == "dp_mesh"
-        got["trainer"].pop("devices")
+    if overrides:  # allgpus: every device, data-parallel (the dp mesh there, DDP here)
+        assert got["trainer"].pop("strategy") == "ddp" and want["trainer"].pop("strategy") == "dp_mesh"
+        assert got["trainer"]["devices"] == want["trainer"]["devices"] == -1
+    else:
+        assert got["trainer"]["devices"] == want["trainer"]["devices"] == 1
     assert got == want
 
 

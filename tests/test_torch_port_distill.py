@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_util import TINY_BACKBONE, TINY_SCORE, random_params
+from _torch_port_util import TINY_BACKBONE, TINY_SCORE, jax_distill_draws, random_params
 from _torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 from diffsep_tpu.models import NCSNpp as JaxNCSNpp
 from diffsep_tpu.models import ScoreModelNCSNpp as JaxScoreModel
@@ -60,28 +60,6 @@ def _sdes():
 
 def _t(x):
     return torch.from_numpy(np.asarray(x))
-
-
-def jax_distill_draws(key, cfg, shape):
-    """The draws diffsep_tpu's distill_loss makes from ``key`` for a target of
-    ``shape``, under the names of the port's ``Draws``: its key splits
-    (distill.py:202-234) replayed."""
-    b, n_src, _ = shape
-    draws = {}
-    if cfg.source_order == "random":
-        key, ko = jax.random.split(key)
-        draws["shuffle"] = jax.random.uniform(ko, (b, n_src))
-    ki, kz, kp = jax.random.split(key, 3)
-    draws["i"] = jax.random.randint(ki, (b,), 0, cfg.n_student)
-    draws["z"] = jax.random.normal(kz, shape, jnp.float32)
-    if cfg.prior_mix_at_T > 0.0:
-        kp, kp2 = jax.random.split(kp)
-        draws["use_prior"] = jax.random.uniform(kp2, (b,))
-    if cfg.on_policy_frac > 0.0:
-        ko, kb = jax.random.split(jax.random.fold_in(kp, 1))
-        draws["onpol_prior"] = jax.random.normal(ko, shape, jnp.float32)
-        draws["use_onpol"] = jax.random.uniform(kb, (b,))
-    return {k: np.array(v) for k, v in draws.items()}
 
 
 def _exact_delta_score(sde, x0):

@@ -1,6 +1,7 @@
-"""The port stands alone: no file of diffsep_tpu_torch/, chip_smoke.py nor
-the port's scripts (scripts/torch_port_*.py) imports jax, flax or the JAX
-package."""
+"""The port stands alone: no file of diffsep_tpu_torch/, chip_smoke.py, the
+port's scripts (scripts/torch_port_*.py) nor the worker scripts that the
+port's tests spawn (tests/_torch_port_*_worker.py) imports jax, flax or the
+JAX package."""
 import ast
 from pathlib import Path
 
@@ -8,7 +9,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "diffsep_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
-    (ROOT / "scripts").glob("torch_port_*.py"))
+    (ROOT / "scripts").glob("torch_port_*.py")) + sorted((ROOT / "tests").glob("_torch_port_*_worker.py"))
 FORBIDDEN = ("jax", "jaxlib", "flax", "diffsep_tpu")
 
 
@@ -37,4 +38,6 @@ def test_scan_covers_the_package():
                                        "pesq_native.py", "metrics.py", "datamodule.py", "synthetic.py",
                                        "distill.py", "export.py", "export_model.py"}
     names = [str(p.relative_to(ROOT)) for p in FILES]
-    assert {"diffsep_tpu_torch/train/distill.py", "diffsep_tpu_torch/cli/distill.py"} <= set(names)
+    assert {"diffsep_tpu_torch/train/distill.py", "diffsep_tpu_torch/cli/distill.py",
+            "diffsep_tpu_torch/cli/evaluate_mp.py", "diffsep_tpu_torch/parallel/mesh.py",
+            "diffsep_tpu_torch/parallel/shard_eval.py", "diffsep_tpu_torch/utils/distributed.py"} <= set(names)
