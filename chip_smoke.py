@@ -100,6 +100,17 @@ Phases, each of which fails the run on any error:
      files), records merged in index order, launches exactly PER_EVAL x 60 x
      the sampler runs, seconds per utterance recorded. Every new
      kernel shape of these runs is held against its plain version in bf16.
+ 11. the DiffuSE recipe (model=diffuse: a 30-layer x 64-channel WaveNet on
+     waveforms, float32, no hand kernel): its score and parameter gradients
+     at 2 x 5 s on randomized weights, card against CPU with TF32 off
+     (DIFFUSE_TOL), one evaluation's device time against its host time;
+     cli.train as composed (batch 16 x 5 s, accumulation 2) for
+     DIFFUSE_WARMUP + DIFFUSE_TIMED micro-steps with one validation and
+     one checkpoint; separate on its EMA weights (N=30 and ddim N=6);
+     DIFFUSE_HTTP concurrent requests to the engine cli.serve builds;
+     cli.evaluate --test -N 30; cli.distill N=4 -> 2 and the N=2 artifact
+     held to the live model; TCN and DPTNet card against CPU. No hand
+     kernel may launch in the phase.
 
 The last lines are the `{"kernels": [...]}` summary, then
 `{"ok": true, "device": {...}}`. With --report, every result (per shape,
@@ -176,6 +187,15 @@ PREEMPT_BATCH = 2
 PREEMPT_WIDTH = ["model.score_model.backbone_args.nf=32", "model.score_model.backbone_args.ch_mult=[1,1,2,2]",
                  "model.score_model.backbone_args.num_res_blocks=1"]
 EVAL_MP_FILES, EVAL_MP_BATCH = 8, 4
+# the DiffuSE recipe (phase 11): its published batch (the default
+# datamodule's 16 x 5 s) and micro-steps around the timing, test files,
+# concurrent HTTP requests, distill steps per stage, back-to-back
+# evaluations of the host-vs-device reading; tolerances of the card against
+# the CPU in float32 with TF32 off (score: of its scale; gradients: max
+# |difference| over the global norm), also those of TCN and DPTNet
+DIFFUSE_BATCH, DIFFUSE_WARMUP, DIFFUSE_TIMED, DIFFUSE_TEST = 16, 2, 8, 4
+DIFFUSE_HTTP, DIFFUSE_DISTILL_STEPS, DIFFUSE_EVALS = 6, 3, 10
+DIFFUSE_TOL = {"score": 1e-4, "grad": 1e-3}
 RECORD_KEYS = {"batch_idx", "si_sdr", "si_sir", "si_sar", "pesq", "stoi", "nfe", "runtime", "len_s"}
 # odd-sized FIR downs whose backward is the pads-(2, 2) up (repair F1), and
 # resampling calls that no kernel serves, run plain on the card (F2)
@@ -1831,6 +1851,299 @@ def ddp_phase(dev, card, tmp, run_dir, data, checked):
     return out, dict(total)
 
 
+# --- phase 11: the DiffuSE recipe (model=diffuse) --------------------------
+def card_vs_cpu(make, inputs, seed, dev):
+    """A module built twice by ``make(device)`` with the CPU copy's weights
+    randomized (``randomize_``) and copied to the card; the same inputs
+    through both, forward and the gradients of sum(out * w) for a seeded w.
+    Returns (output error over its scale, gradient error over the norm,
+    scale, the card's module)."""
+    import torch
+
+    cpu = make("cpu")
+    randomize_(cpu, seed)
+    gpu = make(dev)
+    gpu.load_state_dict(cpu.state_dict())
+    outs, grads = {}, {}
+    for name, m, d in (("cpu", cpu, "cpu"), ("card", gpu, dev)):
+        m.zero_grad()
+        out = m(*[x.to(d) for x in inputs])
+        w = torch.randn(out.shape, generator=torch.Generator().manual_seed(seed + 1)).to(d)
+        (out * w).sum().backward()
+        outs[name] = out.detach().cpu()
+        grads[name] = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+                       for k, p in m.named_parameters()}
+    scale = outs["cpu"].abs().max().item()
+    norm = sum(float(g.double().square().sum()) for g in grads["cpu"].values()) ** 0.5
+    grad_err = max(float((grads["card"][k] - g).abs().max()) for k, g in grads["cpu"].items()) / norm
+    return (outs["card"] - outs["cpu"]).abs().max().item() / scale, grad_err, scale, gpu
+
+
+def diffuse_flops(model, n_samples):
+    """Operations (2 x multiply-adds) of one DiffuSE evaluation on
+    ``n_samples`` samples (batch x time): its convolutions, each weight
+    element once per sample; the step embedding's dense layers, once per
+    row, add under 0.01%."""
+    import torch
+
+    return 2 * n_samples * sum(m.weight.numel() for m in model.modules() if isinstance(m, torch.nn.Conv1d))
+
+
+def diffuse_phase(dev, card, cycles_per_ms, tmp):
+    """Phase 11: the DiffuSE recipe at full width through its entry points,
+    in the directory ``tmp``; see the module docstring. Returns (report,
+    launches of the hand kernels over the phase: none)."""
+    import argparse
+
+    import torch
+
+    from diffsep_tpu_torch.cli import distill as distill_cli
+    from diffsep_tpu_torch.cli import evaluate as eval_cli
+    from diffsep_tpu_torch.cli import export_model as export_cli
+    from diffsep_tpu_torch.cli import serve as serve_cli
+    from diffsep_tpu_torch.cli import train as train_cli
+    from diffsep_tpu_torch.cli.loading import load_model
+    from diffsep_tpu_torch.cli.serve_http import HTTPSeparationServer
+    from diffsep_tpu_torch.config import compose
+    from diffsep_tpu_torch.data.audio_io import load_wav_bytes, wav_to_bytes
+    from diffsep_tpu_torch.data.synthetic import write_wsj0_mix
+    from diffsep_tpu_torch.export import load_separator
+    from diffsep_tpu_torch.model import DiffSepModel
+    from diffsep_tpu_torch.models import DPTNet, TemporalConvNet
+    from diffsep_tpu_torch.ops import _build
+    from diffsep_tpu_torch.train import distill
+
+    out = {}
+    t_phase = time.perf_counter()
+    tf32 = dict(cudnn=torch.backends.cudnn.allow_tf32, matmul=torch.backends.cuda.matmul.allow_tf32)
+    out["tf32"] = tf32
+    log(f"[diffuse] TF32 allowed: cuDNN {tf32['cudnn']}, matmul {tf32['matmul']} (every timed run below)")
+    _build.reset_counts()  # no hand kernel may launch in this phase
+    torch.cuda.empty_cache()
+
+    # a. the full-width score and its parameter gradients, card against CPU
+    cfg = compose(["model=diffuse"])
+    n = SERVE_SECONDS * FS
+    g = torch.Generator().manual_seed(31)
+    xt = 0.5 * torch.randn((SERVE_BATCH, 2, n), generator=g)
+    mix = 0.5 * torch.randn((SERVE_BATCH, 1, n), generator=g)
+    t = torch.tensor([0.37, 1.0])
+    t0 = time.perf_counter()
+    score_err, grad_err, scale, score_model = card_vs_cpu(
+        lambda d: DiffSepModel(cfg, device=d, seed=3).score_model, (xt, t, mix), 32, dev)
+    check_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in score_model.parameters())
+    xt_d, t_d, mix_d = xt.to(dev), t.to(dev), mix.to(dev)
+
+    def evaluate():
+        with torch.no_grad():
+            score_model(xt_d, t_d, mix_d)
+
+    device_ms = time_ms(evaluate, cycles_per_ms)
+    evaluate()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DIFFUSE_EVALS):
+        evaluate()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / DIFFUSE_EVALS
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / DIFFUSE_EVALS
+    flops = diffuse_flops(score_model, SERVE_BATCH * n)
+    bound_ms = flops / PEAK_FLOPS["float32"] * 1e3
+    out["check"] = dict(parameters=n_params, score_rel_err=score_err, grad_rel_err=grad_err, scale=scale,
+                        tol=DIFFUSE_TOL, seconds=check_s)
+    out["evaluation"] = dict(batch=SERVE_BATCH, seconds=SERVE_SECONDS, device_ms=device_ms, wall_ms=wall_ms,
+                             enqueue_ms=enqueue_ms, idle_share=1.0 - device_ms / wall_ms, tflop=flops / 1e12,
+                             bound_ms=bound_ms, tflops=flops / device_ms / 1e9)
+    bb = cfg.model.score_model.backbone_args
+    log(f"[diffuse] model=diffuse: DiffuSE {bb.residual_layers} x {bb.residual_channels}, dilation cycle "
+        f"{bb.dilation_cycle_length}, embedding {bb.embedding_len}, {n_params} parameters, float32")
+    log(f"[diffuse] card vs CPU at {SERVE_BATCH} x {SERVE_SECONDS} s, randomized weights: score {score_err:.3g} of "
+        f"scale {scale:.3g} (tol {DIFFUSE_TOL['score']}), parameter gradients {grad_err:.3g} of their norm "
+        f"(tol {DIFFUSE_TOL['grad']}); {check_s:.1f} s")
+    log(f"[diffuse] one evaluation at {SERVE_BATCH} x {SERVE_SECONDS} s: device {device_ms:.3f} ms "
+        f"({flops / 1e12:.4f} TFLOP, {flops / device_ms / 1e9:.2f} TFLOP/s; bound {bound_ms:.3f} ms at "
+        f"{PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s f32), host enqueue {enqueue_ms:.3f} ms, wall {wall_ms:.3f} ms "
+        f"over {DIFFUSE_EVALS} back to back, idle share {1.0 - device_ms / wall_ms:.3f} ({card})")
+    assert score_err <= DIFFUSE_TOL["score"] and grad_err <= DIFFUSE_TOL["grad"], (score_err, grad_err)
+    del score_model
+
+    # b. cli.train model=diffuse as composed (batch 16 x 5 s, accumulation
+    # 2, Adam 2e-4, clip 5, EMA 0.999), one validation, one checkpoint
+    data = write_wsj0_mix(Path(tmp) / "diffuse_wsj0_mix", {"train": DIFFUSE_BATCH, "val": 2, "test": DIFFUSE_TEST},
+                          seconds=SERVE_SECONDS, fs=FS, seed=1)
+    steps = DIFFUSE_WARMUP + DIFFUSE_TIMED
+    overrides = ["model=diffuse", f"path.datasets.wsj0_mix={data}", f"path.exp_root={tmp}/exp_diffuse",
+                 f"trainer.max_steps={steps}", f"trainer.check_val_every_n_epoch={steps}"]
+    log(f"[diffuse] python -m diffsep_tpu_torch.cli.train {' '.join(overrides)}")
+    per_step = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(DiffSepModel, "make_train_step", counting_train_step(per_step)):
+        state = train_cli.main(overrides)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    run_dir = next(Path(tmp, "exp_diffuse").glob("*/*/train_log.jsonl")).parent
+    index = json.loads((run_dir / "checkpoints" / "index.json").read_text())
+    assert state.step == steps and len(per_step) == steps and list(index) == [str(steps)], (state.step, index)
+    speed, rows = train_speed(run_dir, DIFFUSE_WARMUP, DIFFUSE_TIMED, DIFFUSE_BATCH)
+    losses = [r["train/score_loss"] for r in rows]
+    peak = max(s["peak_gib"] for s in per_step)
+    assert all(s["batch"] == [DIFFUSE_BATCH, 1, n] for s in per_step), [s["batch"] for s in per_step]
+    assert all(np.isfinite(losses)) and all(np.isfinite(v) for v in index[str(steps)].values()), (losses, index)
+    assert all(not s["launches"] for s in per_step), [s["launches"] for s in per_step]
+    out["train"] = dict(batch=DIFFUSE_BATCH, run_s=run_s, **speed, peak_gib=peak, losses=losses,
+                        validation=index[str(steps)], ema_updates=state.ema.num_updates)
+    log(f"[diffuse] train: {steps} micro-steps of {DIFFUSE_BATCH} x {SERVE_SECONDS} s in {run_s:.1f} s with "
+        f"validation and checkpoint; timed {DIFFUSE_TIMED} after {DIFFUSE_WARMUP}: "
+        f"{speed['ms_per_micro_step']:.2f} ms per micro-step, {speed['samples_per_s']:.3f} samples/s, peak "
+        f"{peak:.2f} GiB ({card}); losses {[f'{v:.5g}' for v in losses]}; validation {index[str(steps)]}")
+    del state
+
+    # c. separation with the run's EMA weights
+    model = load_model(run_dir, device=dev)
+    mix_d = (0.1 * torch.randn((SERVE_BATCH, 1, n), generator=torch.Generator().manual_seed(34))).to(dev)
+    sep = {}
+    for label, kw in [("reverse_diffusion+ald2 N=30", dict(N=30)),
+                      ("ddim+none N=6", dict(predictor_name="ddim", corrector_name="none", N=6))]:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        est, nfe = model.separate(mix_d, generator=torch.Generator(device=dev).manual_seed(0), **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        assert est.shape == (SERVE_BATCH, 2, n) and torch.isfinite(est).all(), label
+        sep[label] = dict(nfe=nfe, seconds=secs, utt_per_s=SERVE_BATCH / secs, ms_per_eval=secs * 1e3 / nfe,
+                          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log(f"[diffuse] separate {label}: {SERVE_BATCH} x {SERVE_SECONDS} s in {secs:.3f} s = "
+            f"{SERVE_BATCH / secs:.3f} utt/s, {nfe} evaluations ({secs * 1e3 / nfe:.2f} ms each), peak "
+            f"{sep[label]['peak_mem_gib']:.2f} GiB ({card})")
+    out["separate"] = sep
+    del model
+
+    # d. cli.serve's engine on the run dir, as `--http` builds it, and a
+    # burst of concurrent requests of seeded 3-6 s lengths
+    engine = serve_cli._engine_from_args(argparse.Namespace(
+        model=run_dir, device=str(dev), N=None, snr=None, corrector_steps=None, predictor=None, corrector=None,
+        batch=4, bucket_s=1.0, seed=0))
+    rng = np.random.default_rng(35)
+    lengths = rng.integers(HTTP_SECONDS[0] * FS, HTTP_SECONDS[1] * FS + 1, size=DIFFUSE_HTTP)
+    good = [(0.1 * rng.standard_normal((1, int(m)))).astype(np.float32) for m in lengths]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with HTTPSeparationServer(engine, port=0, max_queue=64) as srv:
+        results, wall = http_burst(srv.port, [wav_to_bytes(w, FS) for w in good])
+        metrics = scrape_metrics(srv.port)
+    lat = [r[2] for r in results if r[0] == 200]
+    resets = [r[3] for r in results if r[3] is not None]
+    for w, (status, body, _, err) in zip(good, results):
+        assert status == 200, (status, body[:200], err)
+        est, sr = load_wav_bytes(body)
+        assert sr == FS and est.shape == (2, w.shape[-1]) and np.isfinite(est).all(), (sr, est.shape)
+    assert not resets, resets
+    out["http"] = dict(requests=DIFFUSE_HTTP, lengths_s=[int(m) / FS for m in lengths], wall_s=wall,
+                       requests_per_s=len(lat) / wall, latency_s=percentiles(lat), connection_resets=len(resets),
+                       program_runs=int(metrics["diffsep_batch_fill_count"]),
+                       peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[diffuse] http: {DIFFUSE_HTTP} concurrent requests of {HTTP_SECONDS[0]}-{HTTP_SECONDS[1]} s, batch 4, "
+        f"reverse_diffusion+ald2 N=30: {len(lat) / wall:.3f} requests/s, latency p50 "
+        f"{out['http']['latency_s']['p50']:.3f} max {out['http']['latency_s']['max']:.3f} s, "
+        f"{out['http']['program_runs']} program runs, {len(resets)} connection resets, peak "
+        f"{out['http']['peak_mem_gib']:.2f} GiB ({card})")
+    del engine
+
+    # e. cli.evaluate on the test split at N=30
+    res_dir = Path(tmp) / "eval_diffuse"
+    t0 = time.perf_counter()
+    eval_cli.main([str(run_dir), "--test", "-N", "30", "--save-n", "0", "-o", str(res_dir), "--device", str(dev)])
+    secs = time.perf_counter() - t0
+    (res,) = [p for p in res_dir.iterdir() if p.is_dir()]
+    records = json.loads((res / "test.json").read_text())
+    assert len(records) == DIFFUSE_TEST and all(set(r) >= RECORD_KEYS for r in records), records[:1]
+    assert all(np.isfinite(np.asarray(r["si_sdr"], float)).all() and r["nfe"] == PROD_NFE for r in records)
+    runtime = float(np.mean([r["runtime"] for r in records]))
+    out["evaluate"] = dict(files=DIFFUSE_TEST, seconds=secs, s_per_utt=secs / DIFFUSE_TEST, mean_runtime_s=runtime)
+    log(f"[diffuse] cli.evaluate RUN --test -N 30: {DIFFUSE_TEST} files of {SERVE_SECONDS} s in {secs:.1f} s "
+        f"with loading = {secs / DIFFUSE_TEST:.3f} s per utterance (mean record runtime {runtime:.3f} s) ({card})")
+
+    # f. cli.distill N=4 -> 2 on the run's data, then the N=2 artifact
+    dist_root = Path(tmp) / "distilled_diffuse"
+    argv = [str(run_dir), "--stages", "4,2", "--steps", str(DIFFUSE_DISTILL_STEPS), "--schedule", "log",
+            "--out", str(dist_root), "--log-every", "1", "--device", str(dev)]
+    log(f"[diffuse] python -m diffsep_tpu_torch.cli.distill {' '.join(argv)}")
+    d_steps, ends = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(distill, "make_distill_step", counting_distill_step(d_steps)), \
+            mock.patch.object(distill, "distill_stage", synced_distill_stage(ends)):
+        distill_cli.main(argv)
+    d_run = time.perf_counter() - t0
+    d_losses = [float(s["loss"]) for s in d_steps]
+    assert len(d_steps) == 2 * DIFFUSE_DISTILL_STEPS and all(np.isfinite(d_losses)), d_losses
+    d_ms = [(ends[si] - d_steps[si * DIFFUSE_DISTILL_STEPS + 1]["start"]) * 1e3 / (DIFFUSE_DISTILL_STEPS - 1)
+            for si in range(2)]
+    student = dist_root / "N2"
+    art = Path(tmp) / "diffuse_n2.dst"
+    t0 = time.perf_counter()
+    export_cli.main([str(student), "-o", str(art), "--batch", str(SERVE_BATCH), "--len-s", str(SERVE_SECONDS),
+                     "--device", str(dev)])
+    export_s = time.perf_counter() - t0
+    sep_art = load_separator(art)
+    mix_np = (0.1 * np.random.default_rng(36).standard_normal((SERVE_BATCH, 1, n))).astype(np.float32)
+    calls = []
+    for _ in range(ART_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est = sep_art.call(21, mix_np)
+        torch.cuda.synchronize()
+        calls.append(time.perf_counter() - t0)
+    live = load_model(student, device=dev)
+    want, _ = live.separate_masked(mix_np, [n] * SERVE_BATCH, generator=torch.Generator(device=dev).manual_seed(21))
+    diff = (est - want).abs().max().item()
+    assert torch.isfinite(est).all() and diff <= 1e-5 * want.abs().max().item(), diff
+    out["distill"] = dict(steps=DIFFUSE_DISTILL_STEPS, run_s=d_run, ms_per_step=d_ms, losses=d_losses,
+                          samples_per_s=[DIFFUSE_BATCH * 1e3 / m for m in d_ms],
+                          peak_gib=max(s["peak_gib"] for s in d_steps))
+    out["artifact"] = dict(export_s=export_s, mb=art.stat().st_size / 1e6, call_s=calls,
+                           utt_per_s=[SERVE_BATCH / s for s in calls], max_abs_vs_live=diff)
+    log(f"[diffuse] distill N=4 -> 2, {DIFFUSE_DISTILL_STEPS} steps each of {DIFFUSE_BATCH} x {SERVE_SECONDS} s: "
+        f"{', '.join(f'{m:.2f}' for m in d_ms)} ms per step after the first, peak "
+        f"{out['distill']['peak_gib']:.2f} GiB ({card}); losses {[f'{v:.5g}' for v in d_losses]}")
+    log(f"[diffuse] artifact N=2 at {SERVE_BATCH} x {SERVE_SECONDS} s: {art.stat().st_size / 1e6:.2f} MB, exported "
+        f"in {export_s:.1f} s; {', '.join(f'{SERVE_BATCH / s:.3f}' for s in calls)} utt/s ({card}); against the "
+        f"live separate_masked on the same seed: {diff:.3g}{' (bit for bit)' if diff == 0.0 else ''}")
+    del live, sep_art
+
+    # g. the library backbones, card against CPU at small sizes (train mode,
+    # dropout 0: cuDNN's RNN backward runs only in training mode)
+    aux = {}
+    g2 = torch.Generator().manual_seed(37)
+    w_in = torch.randn((2, 64, 400), generator=g2)
+    for norm, causal in (("gLN", False), ("cLN", True), ("BN", False)):
+        aux[f"TemporalConvNet {norm}{' causal' if causal else ''}"] = card_vs_cpu(
+            lambda d: TemporalConvNet(N=64, B=32, H=64, P=3, X=4, R=2, C=2, norm_type=norm, causal=causal).to(d),
+            (w_in,), 38, dev)[:3]
+    x_in = torch.randn((2, 16, 50, 20), generator=g2)
+    for rnn, bi in (("LSTM", True), ("GRU", False), ("RNN", True)):
+        aux[f"DPTNet {rnn}{' bidirectional' if bi else ''}"] = card_vs_cpu(
+            lambda d: DPTNet(rnn, 16, 32, 16, att_heads=4, num_layers=2, bidirectional=bi).to(d),
+            (x_in,), 39, dev)[:3]
+    out["aux_models"] = {k: dict(out_rel_err=a, grad_rel_err=b, scale=s) for k, (a, b, s) in aux.items()}
+    for k, (a, b, _) in aux.items():
+        log(f"[diffuse] {k}, card vs CPU: output {a:.3g} of scale, gradients {b:.3g} of their norm")
+    assert all(a <= DIFFUSE_TOL["score"] and b <= DIFFUSE_TOL["grad"] for a, b, _ in aux.values()), aux
+
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    assert not counts, f"hand kernels launched on the DiffuSE path: {counts}"
+    out["launches"] = {k: 0 for k in KERNELS}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[diffuse] no hand kernel launched ({', '.join(KERNELS)}: 0); phase 11 took {out['seconds']:.1f} s")
+    return out, out["launches"]
+
+
 def ptxas_lines(text):
     """nvcc's -Xptxas -v report, one instantiation at a time: its kernel (the
     mangled template arguments shortened) beside its register and spill lines."""
@@ -2038,6 +2351,8 @@ def main() -> int:
         # 10. data parallelism and multi-device evaluation
         checked |= {(r["kernel"], tuple(r["shape"]), r["cout"]) for r in report["distill"]["kernel_checks"]}
         report["ddp"], ddp_counts = ddp_phase(dev, card, tmp, train["run_dir"], Path(tmp) / "wsj0_mix", checked)
+        # 11. the DiffuSE recipe
+        report["diffuse"], diffuse_counts = diffuse_phase(dev, card, cycles_per_ms, tmp)
 
     # summary per kernel: the bf16 (serving) times summed over one score
     # evaluation's launches at batch 2, and the bf16 times summed over one
@@ -2079,7 +2394,8 @@ def main() -> int:
                               "train backward": train["backward_launches"].get(k, 0),
                               "serve entry points": entry_counts[k], "enhance": enh_counts[k],
                               "distill and artifact": dist_counts[k],
-                              "ddp ranks, allgpus, preemption, evaluate_mp": ddp_counts[k]},
+                              "ddp ranks, allgpus, preemption, evaluate_mp": ddp_counts[k],
+                              "diffuse (phase 11)": diffuse_counts[k]},
             launches_per_ddp_micro_step_per_rank={"forward": TRAIN_PER_STEP[k][0], "backward": TRAIN_PER_STEP[k][1]},
             launches_per_distill_step={"forward": 3 * PER_EVAL[k], "backward": TRAIN_PER_STEP[k][1]},
             launches_per_micro_step={"forward": TRAIN_PER_STEP[k][0], "backward": TRAIN_PER_STEP[k][1]},

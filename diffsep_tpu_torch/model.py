@@ -8,8 +8,12 @@ separation model of the ICASSP 2023 recipe (``model/default.yaml`` with
 ``experiment/icassp-separation.yaml``): NCSN++ nf=128 computing in bf16,
 STFT 510/128, MixSDE with 30 steps, reverse_diffusion + ald2 at snr 0.5,
 and the recipe's loss (init hack 5) and optimizer (Adam 2e-4, fixed clip
-5, EMA 0.999). Parameters, EMA and optimizer state are in a ``TrainState``
-(``train/trainer.py``) around the model's parameters.
+5, EMA 0.999). A config whose score model is ``ScoreModelDiffuSE``
+(``model=diffuse``: the DiffuSE WaveNet on waveforms, float32) takes none
+of these defaults: its model node is read as it is, with the JAX package's
+defaults for the keys it leaves out. Parameters, EMA and optimizer state
+are in a ``TrainState`` (``train/trainer.py``) around the model's
+parameters.
 """
 from __future__ import annotations
 
@@ -26,8 +30,10 @@ from torch import nn
 
 from . import resolve_device
 from .config.compose import instantiate
+from .models.cdiffuse import DiffuSE
 from .models.ncsnpp import NCSNpp
 from .models.score_model import ScoreModelNCSNpp
+from .models.score_model_diffuse import ScoreModelDiffuSE
 from .sampling.pc import get_pc_sampler, pc_sample
 from .sde import OUVESDE, OUVPSDE, SDE, MixSDE, PriorMixSDE
 from .train import trainer
@@ -109,11 +115,24 @@ def _unsupported(what: str, value) -> NotImplementedError:
     return NotImplementedError(f"{what}={value!r} is not ported to diffsep_tpu_torch yet")
 
 
-def build_score_model(cfg: Mapping[str, Any]) -> ScoreModelNCSNpp:
+def is_diffuse(cfg: Optional[Mapping[str, Any]]) -> bool:
+    """Whether a model node's score model is the time-domain
+    ``ScoreModelDiffuSE`` (the JAX package dispatches on this suffix)."""
+    sm = (cfg or {}).get("score_model") or {}
+    return str(sm.get("_target_", "")).endswith("ScoreModelDiffuSE")
+
+
+def build_score_model(cfg: Mapping[str, Any]) -> nn.Module:
     n_src = int(cfg["n_speakers"])
     sm = cfg["score_model"]
     backbone_args = dict(sm["backbone_args"])
     target = backbone_args.pop("_target_", "NCSNpp")
+    if is_diffuse(cfg):
+        # waveforms in and out: one channel per source, no STFT
+        if not target.endswith("DiffuSE"):
+            raise _unsupported("backbone", target)
+        return ScoreModelDiffuSE(DiffuSE(num_channels_in=n_src, num_channels_out=n_src, **backbone_args),
+                                 num_sources=n_src)
     if not target.endswith("NCSNpp"):
         raise _unsupported("backbone", target)
     if backbone_args.pop("remat", False):
@@ -187,9 +206,10 @@ class DiffSepModel(nn.Module):
 
     config: a composed config (its ``model`` and ``trainer`` nodes; the
     whole tree is kept as ``run_config``), or overrides of ``FLAGSHIP``
-    (nested dict). device: where it runs, CUDA unless the caller asks
-    otherwise. seed: the weights are drawn with the JAX package's
-    initializers from this seed; load a state dict to replace them.
+    (nested dict); a DiffuSE model node is taken whole, not as overrides.
+    device: where it runs, CUDA unless the caller asks otherwise. seed: the
+    weights are drawn with the JAX package's initializers from this seed;
+    load a state dict to replace them.
     """
 
     def __init__(self, config: Optional[Mapping[str, Any]] = None, device=None, seed: int = 0):
@@ -201,7 +221,8 @@ class DiffSepModel(nn.Module):
         if self.run_config is not None:
             trainer_cfg = config.get("trainer") or {}
             config = config["model"]
-        self.config = merge_config(FLAGSHIP, config)
+        # the flagship's defaults are NCSN++'s: none of them reaches DiffuSE
+        self.config = merge_config({} if is_diffuse(config) else FLAGSHIP, config)
         cfg = self.config
         self.score_model = build_score_model(cfg)
         self.score_model.backbone.reset_parameters(torch.Generator().manual_seed(seed))

@@ -19,15 +19,31 @@ parameters, the EMA shadow and its count, Adam's moments and count,
 ``optax.MultiSteps``'s accumulated gradient and counters, and AutoClip's
 history, each tree of parameter shape through the same mapping. Both
 packages can then take the same step from the same state.
+
+``diffuse_state_dict_from_jax``, ``tcn_state_dict_from_jax`` and
+``dptnet_state_dict_from_jax`` do the same for the other backbones, whose
+port computes in (batch, channels, time):
+
+  flax Conv kernel (k, I/groups, O)  -> Conv1d weight (O, I/groups, k)
+  flax Dense kernel (I, O)           -> Linear weight (O, I)
+  attention query/key/value (I, H, D), bias (H, D) -> Linear (H*D, I), (H*D,)
+  attention out (H, D, O)            -> Linear (O, H*D)
+  gLN/cLN gamma, beta (1, 1, C)      -> (1, C, 1); PReLU alpha () -> weight (1,)
+  flax LSTM/GRU/simple cells         -> torch's packed weight_ih/weight_hh
+                                        /bias_ih/bias_hh, the bias flax
+                                        lacks set to zero
+  module ``name_<i>``                -> ``name.<i>``
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax", "state_dicts_from_reference", "train_state_from_jax"]
+__all__ = ["state_dict_from_jax", "state_dicts_from_reference", "train_state_from_jax",
+           "diffuse_state_dict_from_jax", "tcn_state_dict_from_jax", "dptnet_state_dict_from_jax"]
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
@@ -74,6 +90,143 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         out["backbone." + _module_index_unrename(path)] = torch.from_numpy(
             np.array(arr, np.float32, order="C")
         )
+    return out
+
+
+def _tensor(arr) -> torch.Tensor:
+    return torch.from_numpy(np.array(arr, np.float32, order="C"))
+
+
+def _leaf_1d(name: str, arr: np.ndarray):
+    """(torch name, array) of one leaf of a (batch, time, channels) flax
+    module computing in (batch, channels, time) in the port."""
+    if name == "kernel":
+        if arr.ndim == 3:  # Conv (k, I, O) -> (O, I, k)
+            return "weight", arr.transpose(2, 1, 0)
+        if arr.ndim == 4:  # Conv (1, 1, I, O) -> (O, I, 1, 1)
+            return "weight", arr.transpose(3, 2, 0, 1)
+        if arr.ndim == 2:
+            return "weight", arr.T
+        raise ValueError(f"Unhandled kernel shape {arr.shape}")
+    if name in ("gamma", "beta"):  # (1, 1, C) -> (1, C, 1)
+        return name, arr.transpose(0, 2, 1)
+    if name == "alpha":
+        return "weight", arr.reshape(1)
+    if name == "scale":
+        return "weight", arr
+    if name == "bias":
+        return name, arr
+    raise ValueError(f"Unhandled parameter {name}")
+
+
+def _indexed(part: str, names) -> str:
+    """``name_<i>`` -> ``name.<i>`` for a module list named in ``names``."""
+    stem, _, idx = part.rpartition("_")
+    return f"{stem}.{idx}" if stem in names and idx.isdigit() else part
+
+
+def _convert_1d(params: Mapping[str, Any], rename) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(params):
+        name, arr = _leaf_1d(path[-1], np.asarray(arr, np.float32))
+        out[".".join(rename(p) for p in path[:-1]) + "." + name] = _tensor(arr)
+    return out
+
+
+def diffuse_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``DiffuSE`` params -> ``DiffuSE.state_dict()``; a JAX
+    ``ScoreModelDiffuSE`` tree (the backbone under 'backbone') ->
+    ``ScoreModelDiffuSE.state_dict()``."""
+    if "backbone" in params:
+        return {"backbone." + k: v for k, v in diffuse_state_dict_from_jax(params["backbone"]).items()}
+    return _convert_1d(params, lambda p: _indexed(p, ("residual_layers",)))
+
+
+# flax's auto-named modules: a norm of choose_norm, an RNN cell of DPTNet
+_NORMS = ("GlobalLayerNorm", "ChannelwiseLayerNorm", "GroupNorm")
+_CELLS = ("OptimizedLSTMCell", "GRUCell", "SimpleCell")
+
+
+def tcn_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``TemporalConvNet`` params -> ``TemporalConvNet.state_dict()``."""
+
+    def rename(part):
+        m = re.fullmatch(r"repeat_(\d+)_block_(\d+)", part)
+        if m:
+            return f"repeats.{m.group(1)}.{m.group(2)}"
+        return "norm" if part.rpartition("_")[0] in _NORMS else part
+
+    return _convert_1d(params, rename)
+
+
+def _rnn_weights(cells: Mapping[str, Any], suffix: str) -> Dict[str, np.ndarray]:
+    """One direction of a flax RNN cell -> torch's packed RNN weights (gate
+    order i, f, g, o for the LSTM; r, z, n for the GRU)."""
+    def k(name):
+        return np.asarray(cells[name]["kernel"], np.float32).T
+
+    def b(name):
+        return np.asarray(cells[name]["bias"], np.float32)
+
+    if "ii" in cells:  # OptimizedLSTMCell: the input kernels have no bias
+        w_ih = np.concatenate([k(n) for n in ("ii", "if", "ig", "io")])
+        w_hh = np.concatenate([k(n) for n in ("hi", "hf", "hg", "ho")])
+        b_ih = np.zeros(w_ih.shape[0], np.float32)
+        b_hh = np.concatenate([b(n) for n in ("hi", "hf", "hg", "ho")])
+    elif "ir" in cells:  # GRUCell: hr, hz have no bias
+        w_ih = np.concatenate([k(n) for n in ("ir", "iz", "in")])
+        w_hh = np.concatenate([k(n) for n in ("hr", "hz", "hn")])
+        b_ih = np.concatenate([b(n) for n in ("ir", "iz", "in")])
+        zero = np.zeros_like(b("hn"))
+        b_hh = np.concatenate([zero, zero, b("hn")])
+    else:  # SimpleCell: h has no bias
+        w_ih, w_hh, b_ih = k("i"), k("h"), b("i")
+        b_hh = np.zeros_like(b_ih)
+    return {f"weight_ih_l0{suffix}": w_ih, f"weight_hh_l0{suffix}": w_hh,
+            f"bias_ih_l0{suffix}": b_ih, f"bias_hh_l0{suffix}": b_hh}
+
+
+def _attention(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """flax ``MultiHeadDotProductAttention`` -> ``dptnet.MultiHeadAttention``:
+    the (in, heads, head_dim) projections and the (heads, head_dim, out)
+    output flattened over the heads."""
+    out = {}
+    for proj in ("query", "key", "value"):
+        kern = np.asarray(params[proj]["kernel"], np.float32)
+        out[f"{proj}.weight"] = kern.reshape(kern.shape[0], -1).T
+        out[f"{proj}.bias"] = np.asarray(params[proj]["bias"], np.float32).reshape(-1)
+    kern = np.asarray(params["out"]["kernel"], np.float32)
+    out["out.weight"] = kern.reshape(-1, kern.shape[-1]).T
+    out["out.bias"] = np.asarray(params["out"]["bias"], np.float32)
+    return out
+
+
+def dptnet_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``DPTNet`` params -> ``DPTNet.state_dict()``. In a transformer
+    layer the norms are ``norm1``, ``norm2`` in call order, and an RNN's
+    first cell is its forward direction, the second (bidirectional only)
+    the backward one."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def leaves(sub, prefix):
+        for leaf, arr in sub.items():
+            name, arr = _leaf_1d(leaf, np.asarray(arr, np.float32))
+            out[f"{prefix}.{name}"] = _tensor(arr)
+
+    for top, layer in params.items():
+        if top.rpartition("_")[0] not in ("row_transformer", "col_transformer"):
+            leaves(layer, top)  # the output PReLU and conv
+            continue
+        prefix = _indexed(top, ("row_transformer", "col_transformer"))
+        for name, sub in layer.items():
+            stem, _, idx = name.rpartition("_")
+            if name == "self_attn":
+                out.update({f"{prefix}.self_attn.{k}": _tensor(v) for k, v in _attention(sub).items()})
+            elif stem in _CELLS:
+                suffix = "_reverse" if idx == "1" else ""
+                out.update({f"{prefix}.rnn.{k}": _tensor(v) for k, v in _rnn_weights(sub, suffix).items()})
+            else:
+                leaves(sub, f"{prefix}.norm{int(idx) + 1}" if stem in _NORMS else f"{prefix}.{name}")
     return out
 
 

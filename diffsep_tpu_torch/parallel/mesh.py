@@ -119,17 +119,19 @@ def wrap_ddp(module: nn.Module, device: Optional[torch.device] = None) -> nn.Mod
     """``module`` in ``DistributedDataParallel`` under a process group of
     more than one rank, else ``module`` itself.
 
-    Every parameter that requires a gradient gets one in every backward of
-    the training losses (each calls the network once), so unused-parameter
-    search stays off: a parameter left without one fails the next step
-    loudly. Buffers are constants (the FIR taps), so they are not
-    broadcast before every forward."""
+    Each training loss calls the network once, so the graph is the same in
+    every step (``static_graph``): DDP learns in the first backward which
+    parameters take no gradient (DiffuSE's last residual conv, whose output
+    nothing reads; the JAX package gives it a zero gradient) and leaves
+    them out of the later all-reduces without searching the graph again.
+    Buffers are constants (the FIR taps, the step-embedding table), so they
+    are not broadcast before every forward."""
     if world_size() == 1:
         return module
     device = device if device is not None else next(module.parameters()).device
     device_ids = [device.index] if device.type == "cuda" else None
     return nn.parallel.DistributedDataParallel(module, device_ids=device_ids, broadcast_buffers=False,
-                                               find_unused_parameters=False)
+                                               static_graph=True)
 
 
 def fsdp_unsupported() -> NotImplementedError:

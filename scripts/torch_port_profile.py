@@ -2,7 +2,7 @@
 """Device-time breakdown of the PyTorch port (diffsep_tpu_torch) on one GPU:
 flagship score evaluations, or flagship training micro-steps.
 
-    python3 scripts/torch_port_profile.py [--train | --serve] [--report PATH]
+    python3 scripts/torch_port_profile.py [--train | --serve | --diffuse] [--report PATH]
 
 Without --train, the flagship DiffSepModel (NCSN++ nf=128, bf16, seeded
 random weights) evaluates its score on the smoke run's batch
@@ -38,6 +38,10 @@ dispatch that waits keeps micro-batch k+1's enqueueing from overlapping
 k's device time, and a finalize must wait (its copy to the host). It also
 gives the device's busy time per micro-batch against the host's
 (unprofiled), and the idle share 1 - busy / host.
+
+With --diffuse, the evaluations are those of the DiffuSE recipe's model
+instead (``model=diffuse``: 30 layers x 64 channels, float32, seeded random
+weights), on the same batch.
 
 With --report it writes every kernel's row to PATH as JSON.
 """
@@ -109,13 +113,14 @@ def print_rows(rows, unit, top=25):
         print(f"{ms:9.3f} ms {c:7.1f} x / {unit}  {name[:110]}")
 
 
-def profile_eval(dev, card):
+def profile_eval(dev, card, diffuse=False):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from diffsep_tpu_torch.config import compose
     from diffsep_tpu_torch.model import DiffSepModel
 
-    model = DiffSepModel(device=dev, seed=0)
+    model = DiffSepModel(compose(["model=diffuse"]) if diffuse else None, device=dev, seed=0)
     n = SERVE_SECONDS * FS
     rng = np.random.default_rng(0)
     mix = torch.from_numpy((0.1 * rng.standard_normal((SERVE_BATCH, 1, n))).astype(np.float32)).to(dev)
@@ -138,13 +143,13 @@ def profile_eval(dev, card):
     kernels = device_kernels(prof, EVALS)
     busy_ms = sum(k[0] for k in kernels)
     report = dict(
-        card=card, batch=SERVE_BATCH, seconds=SERVE_SECONDS, evals=EVALS,
+        card=card, model="diffuse" if diffuse else "flagship", batch=SERVE_BATCH, seconds=SERVE_SECONDS, evals=EVALS,
         host_ms_per_eval=host_ms, device_busy_ms_per_eval=busy_ms,
         device_idle_share=1.0 - busy_ms / host_ms if host_ms else None,
         kernels=[dict(ms_per_eval=ms, launches_per_eval=c, name=name) for ms, c, name in kernels],
     )
     print(card)
-    print(f"score evaluation, batch {SERVE_BATCH} x {SERVE_SECONDS} s: host {host_ms:.2f} ms, "
+    print(f"{report['model']} score evaluation, batch {SERVE_BATCH} x {SERVE_SECONDS} s: host {host_ms:.2f} ms, "
           f"device busy {busy_ms:.2f} ms, idle share {report['device_idle_share']:.3f}")
     print_rows(kernels, "eval")
     return report
@@ -365,6 +370,7 @@ def main() -> int:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--train", action="store_true", help="profile training micro-steps instead of evaluations")
     mode.add_argument("--serve", action="store_true", help="profile the serving engine's pipeline instead")
+    mode.add_argument("--diffuse", action="store_true", help="profile evaluations of the model=diffuse model")
     ap.add_argument("--report", type=Path, default=None, help="write the breakdown to this JSON file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -377,7 +383,10 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
-    report = (profile_train if args.train else profile_serve if args.serve else profile_eval)(dev, card)
+    if args.train or args.serve:
+        report = (profile_train if args.train else profile_serve)(dev, card)
+    else:
+        report = profile_eval(dev, card, diffuse=args.diffuse)
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1))

@@ -758,3 +758,108 @@ def test_threaded_sharded_separate_launches_exactly(dev):
     assert dict(_build.launch_counts) == {k: 2 * v for k, v in one.items()} and got_nfe == nfe == 2 * N
     assert (got[:2] - want.cpu()).abs().max().item() <= 1e-4 * want.abs().max().item()
     assert torch.isfinite(got).all() and got.shape == (b, 2, n)
+
+
+# --- the DiffuSE recipe and the library backbones (no hand kernel) --------
+def _randomized_pair(make, dev, seed):
+    """``make(device)`` twice, the CPU copy's weights replaced by seeded
+    unit-scale values (the zero output projection included) and copied to
+    the card."""
+    cpu = make("cpu")
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            if p.ndim >= 2:
+                p.copy_(torch.randn(p.shape, generator=g) / (p.numel() / p.shape[0]) ** 0.5)
+            else:
+                p.add_(0.1 * torch.randn(p.shape, generator=g))
+    gpu = make(dev)
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+def _forward_and_grads(module, inputs, w, device):
+    module.zero_grad()
+    out = module(*[x.to(device) for x in inputs])
+    (out * w.to(device)).sum().backward()
+    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu() for k, p in module.named_parameters()}
+    return out.detach().cpu(), grads
+
+
+def _card_vs_cpu(make, inputs, dev, seed):
+    """(output error over its scale, max gradient error over the gradient
+    norm) of the card against the CPU, in float32 with TF32 off."""
+    cpu, gpu = _randomized_pair(make, dev, seed)
+    with torch.no_grad():
+        shape = cpu(*inputs).shape
+    w = torch.randn(shape, generator=torch.Generator().manual_seed(seed + 1))
+    out_c, g_c = _forward_and_grads(cpu, inputs, w, "cpu")
+    out_g, g_g = _forward_and_grads(gpu, inputs, w, dev)
+    norm = sum(float(g.double().square().sum()) for g in g_c.values()) ** 0.5
+    return ((out_g - out_c).abs().max().item() / out_c.abs().max().item(),
+            max(float((g_g[k] - g_c[k]).abs().max()) for k in g_c) / norm)
+
+
+DIFFUSE_SMALL = ["model=diffuse", "model.score_model.backbone_args.residual_layers=10",
+                 "model.score_model.backbone_args.residual_channels=32"]
+
+
+def test_diffuse_score_and_gradients_on_the_card_match_the_cpu(dev):
+    """DiffuSE (10 layers x 32 channels, a full dilation cycle) at 2 x 1 s,
+    t = 1 included: within 1e-4 of the score's scale and 1e-3 of the
+    gradient norm, and no hand kernel launched."""
+    from diffsep_tpu_torch.config import compose
+    from diffsep_tpu_torch.model import DiffSepModel
+
+    cfg = compose(DIFFUSE_SMALL)
+    g = torch.Generator().manual_seed(0)
+    inputs = (torch.randn((2, 2, 8000), generator=g), torch.tensor([0.3, 1.0]), torch.randn((2, 1, 8000), generator=g))
+    _build.reset_counts()
+    score_err, grad_err = _card_vs_cpu(lambda d: DiffSepModel(cfg, device=d).score_model, inputs, dev, 1)
+    assert score_err <= 1e-4 and grad_err <= 1e-3, (score_err, grad_err)
+    assert not _build.launch_counts
+
+
+@pytest.mark.parametrize("predictor,corrector", [("reverse_diffusion", "ald2"), ("ddim", "none")])
+def test_diffuse_separate_on_the_card_matches_the_cpu(dev, predictor, corrector):
+    """DiffSepModel.separate with the same draws on both devices, N=4:
+    within 1e-3 of scale (the score's gap fed through the steps)."""
+    from diffsep_tpu_torch.config import compose
+    from diffsep_tpu_torch.model import DiffSepModel
+
+    cfg = compose(DIFFUSE_SMALL)
+    cpu, gpu = _randomized_pair(lambda d: DiffSepModel(cfg, device=d), dev, 2)
+    g = torch.Generator().manual_seed(3)
+    mix = 0.3 * torch.randn((2, 1, 8000), generator=g)
+    noise = {"prior": torch.randn((2, 2, 8000), generator=g), "corrector": torch.randn((4, 1, 2, 2, 8000), generator=g),
+             "predictor": torch.randn((4, 2, 2, 8000), generator=g)}
+    kw = dict(predictor_name=predictor, corrector_name=corrector, N=4)
+    want, _ = cpu.separate(mix, noise=noise, **kw)
+    _build.reset_counts()
+    got, _ = gpu.separate(mix, noise=noise, **kw)
+    assert not _build.launch_counts
+    assert (got.cpu() - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+
+
+AUX_CASES = [("tcn", "gLN", False), ("tcn", "cLN", True), ("tcn", "BN", False), ("dptnet", "LSTM", True),
+             ("dptnet", "GRU", False), ("dptnet", "RNN", True)]
+
+
+@pytest.mark.parametrize("family,variant,flag", AUX_CASES, ids=["-".join(map(str, c)) for c in AUX_CASES])
+def test_aux_models_on_the_card_match_the_cpu(dev, family, variant, flag):
+    """TemporalConvNet (norm, causal) and DPTNet (RNN, bidirectional), small:
+    within 1e-4 of the output's scale and 1e-3 of the gradient norm."""
+    from diffsep_tpu_torch.models import DPTNet, TemporalConvNet
+
+    g = torch.Generator().manual_seed(4)
+    if family == "tcn":
+        make = lambda d: TemporalConvNet(N=32, B=16, H=32, P=3, X=3, R=2, C=2, norm_type=variant,  # noqa: E731
+                                         causal=flag).to(d)
+        inputs = (torch.randn((2, 32, 200), generator=g),)
+    else:
+        # train mode (dropout 0: the same function): cuDNN's RNN backward
+        # runs only in training mode
+        make = lambda d: DPTNet(variant, 16, 24, 8, att_heads=4, num_layers=2, bidirectional=flag).to(d)  # noqa: E731
+        inputs = (torch.randn((2, 16, 20, 8), generator=g),)
+    out_err, grad_err = _card_vs_cpu(make, inputs, dev, 5)
+    assert out_err <= 1e-4 and grad_err <= 1e-3, (out_err, grad_err)

@@ -36,7 +36,8 @@ def test_scan_covers_the_package():
                                        "separate.py", "pc.py", "predictors.py", "correctors.py",
                                        "evaluate.py", "ouve.py", "mixsde.py", "vctk_demand.py",
                                        "pesq_native.py", "metrics.py", "datamodule.py", "synthetic.py",
-                                       "distill.py", "export.py", "export_model.py"}
+                                       "distill.py", "export.py", "export_model.py", "cdiffuse.py",
+                                       "score_model_diffuse.py", "tcn.py", "dptnet.py", "model_utils.py"}
     names = [str(p.relative_to(ROOT)) for p in FILES]
     assert {"diffsep_tpu_torch/train/distill.py", "diffsep_tpu_torch/cli/distill.py",
             "diffsep_tpu_torch/cli/evaluate_mp.py", "diffsep_tpu_torch/parallel/mesh.py",
