@@ -111,6 +111,23 @@ Phases, each of which fails the run on any error:
      cli.evaluate --test -N 30; cli.distill N=4 -> 2 and the N=2 artifact
      held to the live model; TCN and DPTNet card against CPU. No hand
      kernel may launch in the phase.
+ 12. the NCSN++ options (OPTION_SETS A-D: DDPM blocks, resample convs,
+     residual pyramids, cat, positional embedding, log/none/learnable
+     transforms, an uncentered STFT, ...): one evaluation of each at full
+     width (2 x 5 s, bf16 where the JAX package's promotions leave it,
+     seeded random weights) with its launches held to OPTION_PER_EVAL,
+     every new kernel call held against its plain version, device ms, host
+     ms and idle share; each set at nf=32 in float32, card against CPU
+     (1e-3 of scale) and kernels against plain (2e-5); sets A and C
+     separate at N=30 and ddim N=6 (utt/s, peak); set C through
+     cli.export_model (ddim N=ART_N) held to the live separate_masked and
+     served by cli.separate --model ARTIFACT; the f32 fallback recipe
+     (dtype=float32, remat=true) through cli.train.main at 6 x 5 s for
+     F32_WARMUP + F32_TIMED micro-steps with REMAT_PER_STEP launches each,
+     one micro-step's gradients with remat against without (REMAT_TOL of
+     the norm) and both peaks; and the flagship on one 70 s mixture, its
+     blockwise attention (4416 tokens) against the naive one (LONG_TOL of
+     scale), device ms and peak of each.
 
 The last lines are the `{"kernels": [...]}` summary, then
 `{"ok": true, "device": {...}}`. With --report, every result (per shape,
@@ -124,6 +141,7 @@ import collections
 import contextlib
 import itertools
 import json
+import os
 import re
 import signal
 import statistics
@@ -196,6 +214,45 @@ EVAL_MP_FILES, EVAL_MP_BATCH = 8, 4
 DIFFUSE_BATCH, DIFFUSE_WARMUP, DIFFUSE_TIMED, DIFFUSE_TEST = 16, 2, 8, 4
 DIFFUSE_HTTP, DIFFUSE_DISTILL_STEPS, DIFFUSE_EVALS = 6, 3, 10
 DIFFUSE_TOL = {"score": 1e-4, "grad": 1e-3}
+# the NCSN++ option sets of phase 12, (backbone_args, frontend) over the
+# flagship's (nf=128, 7 levels, 2 res blocks, attention at 16, bf16): A after
+# the DDPM++ settings of score_sde (configs/vp/cifar10_ddpmpp_continuous.py),
+# B after its VE NCSN++ (configs/ve/cifar10_ncsnpp_continuous.py), C and D
+# the remaining options. A's log transform takes the JAX class's default
+# factor, 3: its inverse exp(|X| / factor) would overflow at the flagship's
+# 0.15 on unit-scale random weights. Their hand-kernel launches per score
+# evaluation; the sets separated at N=30 and ddim N=6; back-to-back
+# evaluations of the host-vs-device reading; the nf=32 float32 copy of each
+OPTION_SETS = {
+    "A": ({"fir": False, "progressive": "none", "progressive_input": "none", "embedding_type": "positional",
+           "scale_by_sigma": False}, {"transform": "log", "spec_factor": 3.0}),
+    "B": ({"progressive_input": "residual"}, {"spec_trans_learnable": True}),
+    "C": ({"resblock_type": "ddpm", "progressive": "residual", "progressive_input": "input_skip",
+           "progressive_combine": "cat", "centered": True}, {"transform": "none", "stft_args": {"center": False}}),
+    "D": ({"resblock_type": "ddpm", "fir": False, "progressive": "none", "progressive_input": "none",
+           "conditional": False, "nonlinearity": "elu", "skip_rescale": False}, {}),
+}
+OPTION_PER_EVAL = {"A": {"conv3x3": 100}, "B": {"conv3x3": 106, "fir_down2x": 12, "fir_up2x": 18},
+                   "C": {"conv3x3": 77, "fir_down2x": 6}, "D": {"conv3x3": 82}}
+OPTION_SEPARATE, OPTION_EVALS = ("A", "C"), 5
+SMALL_BACKBONE = {"nf": 32, "ch_mult": (1, 1, 2, 2), "num_res_blocks": 1, "dtype": "float32"}
+# set C's artifact: ddim steps; the f32 fallback recipe (float32, remat) at
+# 6 x 5 s: micro-steps around the timing; its launches per micro-step
+# (forward, backward): remat runs each residual and attention block's
+# forward again in the backward (98 of the 106 convs, the 12 in-block FIR
+# downs and 12 ups); remat against no remat, of the gradient norm
+ART_N = 4
+F32_WARMUP, F32_TIMED = 1, 3
+REMAT_PER_STEP = {"conv3x3": (204, 0), "fir_down2x": (30, 18), "fir_up2x": (30, 12)}
+REMAT_TOL = 1e-6
+# blockwise attention: the flagship on one 70 s mixture (4416 tokens at the
+# attention level, past the 4096 threshold), blockwise against naive in
+# float32, of the score's scale
+LONG_SECONDS, LONG_TOL = 70, 1e-4
+# device time by kernel name fragment (torch.profiler's kernel names)
+OPTION_GROUPS = (("hand conv3x3", ("conv3x3",)), ("hand FIR", ("fir2x",)),
+                 ("cuDNN convs", ("dgrad", "wgrad", "cudnn", "xmma", "implicit_convolve", "conv2d")),
+                 ("GEMMs", ("gemm", "Gemm")))
 RECORD_KEYS = {"batch_idx", "si_sdr", "si_sir", "si_sar", "pesq", "stoi", "nfe", "runtime", "len_s"}
 # odd-sized FIR downs whose backward is the pads-(2, 2) up (repair F1), and
 # resampling calls that no kernel serves, run plain on the card (F2)
@@ -288,8 +345,8 @@ def randomize_(module, seed):
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in module.named_parameters():
-            if name.endswith(".W") and p.ndim == 1:
-                continue  # Fourier projection keeps its init
+            if name.endswith(".W") and p.ndim == 1 or p.ndim == 0:
+                continue  # the Fourier projection and the transform's learnable constants keep their init
             if p.ndim >= 2:
                 p.copy_(torch.randn(p.shape, generator=g) / (p.numel() / p.shape[0]) ** 0.5)
             else:
@@ -2144,6 +2201,468 @@ def diffuse_phase(dev, card, cycles_per_ms, tmp):
     return out, out["launches"]
 
 
+# --- phase 12: the NCSN++ options ------------------------------------------
+def option_config(name, small=False):
+    """The model overrides of option set ``name`` (OPTION_SETS), at the
+    flagship's width, or at nf=32 in float32 (``small``)."""
+    backbone, frontend = OPTION_SETS[name]
+    frontend = dict(frontend)
+    sm = {"backbone_args": dict(backbone, **(SMALL_BACKBONE if small else {})),
+          "stft_args": frontend.pop("stft_args", {}), **frontend}
+    return {"score_model": sm}
+
+
+@contextlib.contextmanager
+def recording_kernels(seen):
+    """Each call of a kernel wrapper counted into ``seen`` under (kernel,
+    input shape, output channels, dtype name), the key that ``check_kernel``
+    takes; the wrappers themselves run as always."""
+    from diffsep_tpu_torch.ops import conv3x3 as conv_mod
+    from diffsep_tpu_torch.ops import fir_resample2x as fir_mod
+
+    def recorder(mod, name):
+        real = getattr(mod, name)
+
+        def call(x, *args, **kwargs):
+            cout = args[0].shape[3] if name == "conv3x3" else None
+            seen[name, tuple(x.shape), cout, str(x.dtype).rpartition(".")[2]] += 1
+            return real(x, *args, **kwargs)
+
+        return mock.patch.object(mod, name, call)
+
+    with contextlib.ExitStack() as stack:
+        for mod, name in [(conv_mod, "conv3x3"), (fir_mod, "fir_down2x"), (fir_mod, "fir_up2x")]:
+            stack.enter_context(recorder(mod, name))
+        yield
+
+
+def randomized_model(config, dev, seed):
+    """A DiffSepModel of ``config`` on ``dev`` with unit-scale random weights
+    (``randomize_`` on a CPU copy, loaded onto the card)."""
+    from diffsep_tpu_torch.model import DiffSepModel
+
+    cpu = DiffSepModel(config, device="cpu", seed=seed)
+    randomize_(cpu.score_model, seed=seed + 1)
+    model = DiffSepModel(config, device=dev, seed=seed)
+    model.score_model.load_state_dict(cpu.score_model.state_dict())
+    return model
+
+
+def busy_and_host_ms(run, n):
+    """Device busy ms per call (torch.profiler's CUDA kernel and copy time
+    over ``n`` calls), host enqueue ms and wall ms per call over ``n``
+    unprofiled back-to-back calls, the idle share 1 - busy / wall, and the
+    device ms by kernel group (OPTION_GROUPS) and of the largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        run()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    kernels = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if e.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
+            kernels.append((dev_us / 1e3 / n, e.count / n, e.key))
+    kernels.sort(reverse=True)
+    groups = {name: 0.0 for name, _ in OPTION_GROUPS}
+    groups["other"] = 0.0
+    for ms, _, name in kernels:
+        groups[next((g for g, frags in OPTION_GROUPS if any(f in name for f in frags)), "other")] += ms
+    busy = sum(k[0] for k in kernels)
+    return dict(device_busy_ms=busy, enqueue_ms=enqueue_ms, wall_ms=wall_ms, idle_share=1.0 - busy / wall_ms,
+                device_ms_by_group=groups,
+                top_kernels=[dict(ms=ms, launches=c, name=name[:100]) for ms, c, name in kernels[:8]])
+
+
+def busy_text(r):
+    groups = ", ".join(f"{k} {v:.2f}" for k, v in r["device_ms_by_group"].items())
+    return (f"device busy {r['device_busy_ms']:.3f} ms ({groups}), host enqueue {r['enqueue_ms']:.3f} ms, "
+            f"wall {r['wall_ms']:.3f} ms, idle share {r['idle_share']:.3f}")
+
+
+def options_phase(dev, card, cycles_per_ms, tmp, data, checked):
+    """Phase 12: the NCSN++ options at full width; see the module docstring.
+    ``data`` is phase 6's synthetic WSJ0-mix folder, ``checked`` the
+    (kernel, shape, cout, dtype) keys earlier phases held against the plain
+    versions. Returns (report, launches over the phase's main-path runs)."""
+    import torch
+
+    from diffsep_tpu_torch.cli import export_model as export_cli
+    from diffsep_tpu_torch.cli import separate as sep_cli
+    from diffsep_tpu_torch.cli import train as train_cli
+    from diffsep_tpu_torch.cli.loading import load_model
+    from diffsep_tpu_torch.data.audio_io import load_wav
+    from diffsep_tpu_torch.export import load_separator
+    from diffsep_tpu_torch.model import DiffSepModel
+    from diffsep_tpu_torch.models import layers
+    from diffsep_tpu_torch.ops import _build
+    from diffsep_tpu_torch.train.checkpoints import load_payload
+
+    out, total, checks = {"sets": {}}, collections.Counter(), []
+    t_phase = time.perf_counter()
+
+    def counted(label, want):
+        torch.cuda.synchronize()
+        got = {k: v for k, v in _build.launch_counts.items() if v}
+        total.update(got)
+        want = {k: v for k, v in want.items() if v}
+        assert got == want, (label, got, want)
+        return got
+
+    def hold(seen, label):
+        """Every kernel call in ``seen`` that no phase has held yet, against
+        its plain version on the card (untimed)."""
+        new = sorted(k for k in seen if k not in checked)
+        for i, (kind, shape, cout, dtype_name) in enumerate(new):
+            r = check_kernel(kind, shape, cout, dtype_name, dev, 300 + len(checks), cycles_per_ms, timed=False)
+            r["path"] = label
+            checks.append(r)
+            checked.add((kind, shape, cout, dtype_name))
+            log(f"[options-kernel] {label}: {kind} {list(shape)}->{cout} {dtype_name}:{plan_text(r['plan'])} "
+                f"err {r['max_abs_err']:.3g} (tol {r['tol']:.3g})")
+        return len(new)
+
+    n = SERVE_SECONDS * FS
+    rng = np.random.default_rng(40)
+    xt = torch.from_numpy((0.3 * rng.standard_normal((SERVE_BATCH, 2, n))).astype(np.float32)).to(dev)
+    mix = torch.from_numpy((0.3 * rng.standard_normal((SERVE_BATCH, 1, n))).astype(np.float32)).to(dev)
+    t = torch.tensor([0.4, 0.9], device=dev)
+    xs = torch.from_numpy(rng.standard_normal((1, 2, FS)).astype(np.float32))
+    ms_ = torch.from_numpy(rng.standard_normal((1, 1, FS)).astype(np.float32))
+    ts = torch.tensor([0.4])
+    models = {}
+    for i, name in enumerate(OPTION_SETS):
+        # a. one full-width evaluation: launches, kernel shapes, times
+        model = randomized_model(option_config(name), dev, 40 + 2 * i)
+        seen = collections.Counter()
+
+        def evaluate():
+            with torch.no_grad():
+                return model.score_fn(xt, t, mix)
+
+        _build.reset_counts()
+        with recording_kernels(seen):
+            score = evaluate()
+        got = counted(f"set {name}", OPTION_PER_EVAL[name])
+        assert score.shape == (SERVE_BATCH, 2, n) and torch.isfinite(score).all(), name
+        n_new = hold(seen, f"set {name}")
+        _build.reset_counts()
+        speed = busy_and_host_ms(evaluate, OPTION_EVALS)
+        _build.reset_counts()
+        dtypes = collections.Counter()
+        for (kind, _, _, dt), cnt in seen.items():
+            dtypes[f"{kind} {dt}"] += cnt
+        # b. the same set at nf=32 in float32: card against CPU, kernels
+        # against plain on the card
+        small = {}
+        m_cpu = DiffSepModel(option_config(name, small=True), device="cpu", seed=50 + i)
+        randomize_(m_cpu.score_model, seed=51 + i)
+        m_gpu = DiffSepModel(option_config(name, small=True), device=dev, seed=50 + i)
+        m_gpu.score_model.load_state_dict(m_cpu.score_model.state_dict())
+        with torch.no_grad():
+            small["cpu"] = m_cpu.score_fn(xs, ts, ms_)
+            _build.reset_counts()
+            small["kernels"] = m_gpu.score_fn(xs.to(dev), ts.to(dev), ms_.to(dev)).cpu()
+            small_launches = {k: v for k, v in _build.launch_counts.items() if v}
+            with plain_kernels():
+                _build.reset_counts()
+                small["plain"] = m_gpu.score_fn(xs.to(dev), ts.to(dev), ms_.to(dev)).cpu()
+                assert not any(_build.launch_counts.values()), dict(_build.launch_counts)
+        scale = small["cpu"].abs().max().item()
+        small_err = {"kernels vs cpu": (small["kernels"] - small["cpu"]).abs().max().item() / scale,
+                     "kernels vs plain on the card": (small["kernels"] - small["plain"]).abs().max().item() / scale}
+        assert all(torch.isfinite(v).all() for v in small.values()), name
+        out["sets"][name] = dict(options=OPTION_SETS[name], launches_per_eval=got, kernel_calls_by_dtype=dict(dtypes),
+                                 new_kernel_shapes=n_new, **speed, score_scale=score.abs().max().item(),
+                                 small_f32=dict(rel_err=small_err, scale=scale, launches=small_launches))
+        log(f"[options] set {name} {OPTION_SETS[name]}: launches per evaluation {got} ({dict(dtypes)}); "
+            f"{n_new} new kernel shapes held; one evaluation at {SERVE_BATCH} x {SERVE_SECONDS} s over "
+            f"{OPTION_EVALS}: {busy_text(speed)} ({card})")
+        log(f"[options] set {name} nf=32 f32: kernels vs cpu {small_err['kernels vs cpu']:.3g}, kernels vs plain "
+            f"on the card {small_err['kernels vs plain on the card']:.3g} of scale {scale:.3g}; launches {small_launches}")
+        assert small_err["kernels vs cpu"] <= 1e-3 and small_err["kernels vs plain on the card"] <= 2e-5, small_err
+        assert small_launches, small_launches
+        del m_cpu, m_gpu
+        if name in OPTION_SEPARATE:
+            models[name] = model
+        else:
+            del model
+        torch.cuda.empty_cache()
+
+    # c. separation with sets A and C: N=30 (reverse_diffusion + ald2) and
+    # ddim N=6, 2 x 5 s
+    sep_mix = 0.3 * mix
+    for name in OPTION_SEPARATE:
+        for label, kw in [("reverse_diffusion+ald2 N=30", dict(N=30)),
+                          ("ddim+none N=6", dict(predictor_name="ddim", corrector_name="none", N=6))]:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_counts()
+            t0 = time.perf_counter()
+            est, nfe = models[name].separate(sep_mix, generator=torch.Generator(device=dev).manual_seed(1), **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = counted(f"set {name} {label}", {k: v * nfe for k, v in OPTION_PER_EVAL[name].items()})
+            assert est.shape == (SERVE_BATCH, 2, n) and torch.isfinite(est).all(), (name, label)
+            row = dict(nfe=nfe, seconds=secs, utt_per_s=SERVE_BATCH / secs, launches=got,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            out["sets"][name][f"separate {label}"] = row
+            log(f"[options] set {name} separate {label}: {SERVE_BATCH} x {SERVE_SECONDS} s in {secs:.2f} s = "
+                f"{row['utt_per_s']:.3f} utt/s, peak {row['peak_gib']:.2f} GiB, launches {got} ({card})")
+
+    # d. set C through cli.export_model, served by cli.separate --model
+    # ARTIFACT and held to the live separate_masked
+    weights = Path(tmp) / "options_set_c.pt"
+    torch.save({"state_dict": {k: v.cpu() for k, v in models["C"].score_model.state_dict().items()},
+                "config": option_config("C")}, weights)
+    del models
+    torch.cuda.empty_cache()
+    art = Path(tmp) / "options_set_c.dst"
+    sampler = dict(predictor_name="ddim", corrector_name="none", N=ART_N)
+    t0 = time.perf_counter()
+    export_cli.main([str(weights), "-o", str(art), "--batch", str(SERVE_BATCH), "--len-s", str(SERVE_SECONDS),
+                     "-N", str(ART_N), "--predictor", "ddim", "--corrector", "none"])
+    export_s = time.perf_counter() - t0
+    sep = load_separator(art)
+    live = load_model(weights, device=dev)
+    amix = (0.1 * rng.standard_normal((SERVE_BATCH, 1, n))).astype(np.float32)
+    n_true = 3 * n // 5
+    amix[1, :, n_true:] = 0.0
+    n_valid = np.array([n, n_true])
+    # cuDNN's transposed conv (set C's up path) may take a nondeterministic
+    # algorithm: the artifact and the live model are held to each other with
+    # the deterministic ones
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        est = sep.call(23, amix, n_valid)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        art_launches = counted("set C artifact call", {k: v * ART_N for k, v in OPTION_PER_EVAL["C"].items()})
+        want, nfe = live.separate_masked(amix, n_valid, generator=torch.Generator(device=dev).manual_seed(23),
+                                         **sampler)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    diff, scale = (est - want).abs().max().item(), want.abs().max().item()
+    assert nfe == ART_N and est.shape == (SERVE_BATCH, 2, n) and torch.isfinite(est).all()
+    assert diff <= 1e-5 * scale and (est[1, :, n_true:] == 0).all(), (diff, scale)
+    del live
+    files = sorted((Path(data) / "2speakers/wav8k/max/cv/mix").iterdir())[:SERVE_BATCH]
+    sep_in = Path(tmp) / "options_sep_in"
+    sep_in.mkdir()
+    for f in files:
+        (sep_in / f.name).symlink_to(f)
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    sep_cli.main([str(sep_in), str(Path(tmp) / "options_sep_out"), "--model", str(art)])
+    sep_s = time.perf_counter() - t0
+    sep_launches = counted("set C artifact cli.separate", {k: v * ART_N for k, v in OPTION_PER_EVAL["C"].items()})
+    for f in files:
+        y, fs = load_wav(Path(tmp) / "options_sep_out" / "s1" / f.name)
+        assert fs == FS and y.shape == load_wav(f)[0].shape and np.isfinite(y).all(), f.name
+    out["set_c_artifact"] = dict(export_s=export_s, mb=art.stat().st_size / 1e6, call_s=call_s,
+                                 utt_per_s=SERVE_BATCH / call_s, launches_per_call=art_launches,
+                                 max_abs_vs_live=diff, scale=scale, bit_exact=diff == 0.0,
+                                 cli_separate=dict(files=len(files), seconds=sep_s, launches=sep_launches))
+    log(f"[options] set C: cli.export_model --batch {SERVE_BATCH} --len-s {SERVE_SECONDS} -N {ART_N} ddim: "
+        f"{export_s:.1f} s, {art.stat().st_size / 1e6:.1f} MB; a call {SERVE_BATCH / call_s:.3f} utt/s; against "
+        f"the live separate_masked {diff:.3g} of scale {scale:.3g}{' (bit for bit)' if diff == 0.0 else ''}; "
+        f"cli.separate --model ARTIFACT: {len(files)} files in {sep_s:.1f} s, launches {sep_launches}")
+    del sep
+    torch.cuda.empty_cache()
+
+    # e. the f32 fallback recipe (float32, remat) through cli.train.main at
+    # the published 6 x 5 s
+    steps = F32_WARMUP + F32_TIMED
+    overrides = ["experiment=icassp-separation", f"path.datasets.wsj0_mix={data}", f"path.exp_root={tmp}/exp_f32",
+                 f"trainer.max_steps={steps}", "model.valid_max_sep_batches=0", "trainer.deterministic=true",
+                 "model.score_model.backbone_args.dtype=float32", "model.score_model.backbone_args.remat=true"]
+    log(f"[options] python -m diffsep_tpu_torch.cli.train {' '.join(overrides)}")
+    per_step = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    with mock.patch.object(DiffSepModel, "make_train_step", counting_train_step(per_step)):
+        state = train_cli.main(overrides)
+    torch.cuda.synchronize()
+    total.update({k: v for k, v in _build.launch_counts.items() if v})
+    run_dir = next(Path(tmp, "exp_f32").glob("*/*/train_log.jsonl")).parent
+    assert state.step == steps and len(per_step) == steps, (state.step, len(per_step))
+    speed, rows = train_speed(run_dir, F32_WARMUP, F32_TIMED, TRAIN_BATCH)
+    want = {k: sum(v) for k, v in REMAT_PER_STEP.items()}
+    want_bwd = {k: v[1] for k, v in REMAT_PER_STEP.items() if v[1]}
+    for s in per_step:
+        assert s["launches"] == want and s["backward"] == want_bwd, (s["launches"], s["backward"])
+    losses = [r["train/score_loss"] for r in rows]
+    assert all(np.isfinite(losses)), losses
+    out["f32_remat_train"] = dict(overrides=overrides, **speed, peak_gib=max(s["peak_gib"] for s in per_step),
+                                  losses=losses, launches_per_micro_step=per_step[-1]["launches"],
+                                  backward_per_micro_step=per_step[-1]["backward"])
+    log(f"[options] f32 + remat, {steps} micro-steps of {per_step[0]['batch']}: {speed['ms_per_micro_step']:.2f} ms "
+        f"per micro-step over the last {F32_TIMED}, {speed['samples_per_s']:.3f} samples/s, peak "
+        f"{out['f32_remat_train']['peak_gib']:.2f} GiB ({card}); launches per micro-step {per_step[-1]['launches']}, "
+        f"of them backward {per_step[-1]['backward']}; losses {losses}")
+
+    # f. one micro-step's gradients with remat against without, and the
+    # peak memory of each, on the run's weights (cuDNN deterministic)
+    payload = load_payload(run_dir / "checkpoints" / "latest.pt")
+    model = DiffSepModel(payload["config"], device=dev, seed=1)
+    model.score_model.load_state_dict(payload["model"], strict=True)
+    del payload
+    b_rng = np.random.default_rng(6)
+    draws = {"mask": np.array([0.05, 0.5, 0.5, 0.5, 0.5, 0.05], np.float32),
+             "z0": b_rng.standard_normal((TRAIN_BATCH, 2, n), dtype=np.float32),
+             "z": b_rng.standard_normal((TRAIN_BATCH, 2, n), dtype=np.float32),
+             "shuffle": b_rng.uniform(size=(TRAIN_BATCH, 2)).astype(np.float32),
+             "time": b_rng.uniform(size=TRAIN_BATCH).astype(np.float32)}
+    tgt6 = torch.from_numpy(0.1 * b_rng.standard_normal((TRAIN_BATCH, 2, n), dtype=np.float32))
+    mix6 = tgt6.sum(dim=1, keepdim=True)
+    res, peaks, grad_shapes = {}, {}, collections.Counter()
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (True, False):
+            model.score_model.backbone.remat = remat
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with recording_kernels(grad_shapes):
+                res[remat] = loss_and_grads(model, draws, mix6, tgt6)
+            torch.cuda.synchronize()
+            peaks[remat] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    gr, gn = res[True][1], res[False][1]
+    norm = torch.sqrt(sum((g.double() ** 2).sum() for g in gn.values())).item()
+    remat_err = max((gr[k] - gn[k]).abs().max().item() for k in gn) / norm
+    n_new = hold(grad_shapes, "f32 + remat micro-step")
+    out["f32_remat_grad_check"] = dict(rel_err=remat_err, tol=REMAT_TOL, norm=norm, peak_gib_remat=peaks[True],
+                                       peak_gib_no_remat=peaks[False], losses=[res[True][0], res[False][0]],
+                                       new_kernel_shapes=n_new)
+    log(f"[options] f32 micro-step at {TRAIN_BATCH} x {SERVE_SECONDS} s: gradients with remat vs without "
+        f"{remat_err:.3g} of their norm {norm:.4g} (tol {REMAT_TOL}); peak {peaks[True]:.2f} GiB with remat, "
+        f"{peaks[False]:.2f} without ({card}); {n_new} new kernel shapes held")
+    assert remat_err <= REMAT_TOL and peaks[True] < peaks[False], (remat_err, peaks)
+    del res, gr, gn
+
+    # where a micro-step's device time goes with remat: one loss and its
+    # backward under torch.profiler (cuDNN deterministic, as the run)
+    from diffsep_tpu_torch.train.losses import Draws
+    from diffsep_tpu_torch.train.trainer import make_loss_fn
+
+    sm = model.score_model
+    sm.backbone.remat = True
+    loss_fn = make_loss_fn(sm, model.sde, model.loss_cfg)
+    t_draws = {k: torch.from_numpy(v).to(dev) for k, v in draws.items()}
+    mix6, tgt6 = mix6.to(dev), tgt6.to(dev)
+
+    def micro_step():
+        sm.zero_grad(set_to_none=True)
+        loss_fn(Draws(None, t_draws), mix6, tgt6).backward()
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        prof = busy_and_host_ms(micro_step, 1)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    out["f32_remat_profile"] = prof
+    log(f"[options] f32 + remat micro-step at {TRAIN_BATCH} x {SERVE_SECONDS} s: {busy_text(prof)} ({card})")
+    for k in prof["top_kernels"]:
+        log(f"[options]   {k['ms']:9.3f} ms {k['launches']:6.0f} x  {k['name']}")
+    del model, sm
+    torch.cuda.empty_cache()
+
+    # g. blockwise attention: the flagship scores one 1 x 70 s mixture
+    # (4416 tokens at the attention level), blockwise and naive, in bf16 and
+    # in float32 on the same weights
+    ln = LONG_SECONDS * FS
+    l_rng = np.random.default_rng(61)
+    lx = torch.from_numpy((0.3 * l_rng.standard_normal((1, 2, ln))).astype(np.float32)).to(dev)
+    lm = torch.from_numpy((0.3 * l_rng.standard_normal((1, 1, ln))).astype(np.float32)).to(dev)
+    lt = torch.tensor([0.5], device=dev)
+    blockwise_calls = collections.Counter()
+    real_blockwise = layers.blockwise_attention
+
+    def counting_blockwise(q, *args, **kwargs):
+        blockwise_calls[q.shape[1]] += 1
+        return real_blockwise(q, *args, **kwargs)
+
+    long, scores = {}, {}
+    for dtype_name in ("bfloat16", "float32"):
+        model = randomized_model({"score_model": {"backbone_args": {"dtype": dtype_name}}}, dev, 60)
+        for label, flag in (("blockwise", ""), ("naive", "0")):  # "": chosen by the token count
+            with mock.patch.dict(os.environ, {"DIFFSEP_ATTN_BLOCKWISE": flag}), \
+                    mock.patch.object(layers, "blockwise_attention", counting_blockwise):
+
+                def evaluate():
+                    with torch.no_grad():
+                        return model.score_fn(lx, lt, lm)
+
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                blockwise_calls.clear()
+                _build.reset_counts()
+                scores[dtype_name, label] = evaluate()
+                got = counted(f"70 s {dtype_name} {label}", PER_EVAL)
+                row = dict(blockwise_calls=dict(blockwise_calls), launches=got,
+                           peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                if dtype_name == "bfloat16":
+                    row.update(busy_and_host_ms(evaluate, 2))
+                _build.reset_counts()
+            assert torch.isfinite(scores[dtype_name, label]).all(), (dtype_name, label)
+            assert row["blockwise_calls"] == ({4416: 3} if label == "blockwise" else {}), row["blockwise_calls"]
+            long[f"{dtype_name} {label}"] = row
+        del model
+    ref = scores["float32", "naive"]
+    scale = ref.abs().max().item()
+
+    def rel(key):
+        return (scores[key] - ref).abs().max().item() / scale
+
+    errs = {"float32 blockwise vs naive": rel(("float32", "blockwise")),
+            "bfloat16 blockwise vs float32 naive": rel(("bfloat16", "blockwise")),
+            "bfloat16 naive vs float32 naive": rel(("bfloat16", "naive")),
+            "bfloat16 blockwise vs bfloat16 naive":
+                (scores["bfloat16", "blockwise"] - scores["bfloat16", "naive"]).abs().max().item() / scale}
+    out["long_attention"] = dict(seconds=LONG_SECONDS, tokens=4416, rel_err=errs, tol=LONG_TOL, scale=scale, **long)
+    for label in ("blockwise", "naive"):
+        r = long[f"bfloat16 {label}"]
+        log(f"[options] flagship bf16, 1 x {LONG_SECONDS} s (4416 tokens at the attention level), {label}: "
+            f"{busy_text(r)}, peak {r['peak_gib']:.2f} GiB ({card}); f32 peak {long[f'float32 {label}']['peak_gib']:.2f}")
+    log(f"[options] 70 s scores, of the f32 naive one's scale {scale:.3g}: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    # blockwise is exact up to the reassociation of its tile sums; in bf16
+    # it rounds unnormalized probabilities where naive rounds normalized
+    # ones, so it is held to be no further from f32 than the naive path is
+    assert errs["float32 blockwise vs naive"] <= LONG_TOL, errs
+    assert errs["bfloat16 blockwise vs float32 naive"] <= 2 * errs["bfloat16 naive vs float32 naive"], errs
+    del scores, ref
+    torch.cuda.empty_cache()
+
+    bad = [r for r in checks if not r["ok"]]
+    out["kernel_checks"] = checks
+    out["launches"] = dict(total)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[options] {len(checks)} new kernel shapes held; phase 12 took {out['seconds']:.1f} s; launches {dict(total)}")
+    assert not bad, f"kernel mismatches at phase 12's shapes: {bad}"
+    return out, collections.Counter(total)
+
+
 def ptxas_lines(text):
     """nvcc's -Xptxas -v report, one instantiation at a time: its kernel (the
     mangled template arguments shortened) beside its register and spill lines."""
@@ -2353,6 +2872,11 @@ def main() -> int:
         report["ddp"], ddp_counts = ddp_phase(dev, card, tmp, train["run_dir"], Path(tmp) / "wsj0_mix", checked)
         # 11. the DiffuSE recipe
         report["diffuse"], diffuse_counts = diffuse_phase(dev, card, cycles_per_ms, tmp)
+        # 12. the NCSN++ options
+        held = {(r["kernel"], tuple(r["shape"]), r["cout"], r["dtype"]) for r in results + train["kernel_checks"]}
+        held |= {(r["kernel"], tuple(r["shape"]), r["cout"], r["dtype"])
+                 for key in ("serve_entry_points", "enhance", "distill", "ddp") for r in report[key]["kernel_checks"]}
+        report["options"], option_counts = options_phase(dev, card, cycles_per_ms, tmp, Path(tmp) / "wsj0_mix", held)
 
     # summary per kernel: the bf16 (serving) times summed over one score
     # evaluation's launches at batch 2, and the bf16 times summed over one
@@ -2371,6 +2895,7 @@ def main() -> int:
         enh_rows = [r for r in report["enhance"]["kernel_checks"] if r["kernel"] == k]
         dist_rows = [r for r in report["distill"]["kernel_checks"] if r["kernel"] == k]
         ddp_rows = [r for r in report["ddp"]["kernel_checks"] if r["kernel"] == k]
+        option_rows = [r for r in report["options"]["kernel_checks"] if r["kernel"] == k]
         if k == "fir_up2x":  # the down's backward at odd sizes runs the up kernel
             enh_rows += report["enhance"]["odd_fir_backward"]
         enh_tr = [r for r in enh_rows if "launches_per_micro_step" in r]
@@ -2384,8 +2909,9 @@ def main() -> int:
         summary.append(dict(
             name=k, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=(serve_counts[k] + train["launches"][k] + entry_counts[k] + enh_counts[k] + dist_counts[k]
-                      + ddp_counts[k]),
-            max_abs_err=max(r["max_abs_err"] for r in rows + tr + entry_rows + enh_rows + dist_rows + ddp_rows),
+                      + ddp_counts[k] + option_counts[k]),
+            max_abs_err=max(r["max_abs_err"] for r in rows + tr + entry_rows + enh_rows + dist_rows + ddp_rows
+                            + option_rows),
             ms=per_eval_sum("ms"), plain_ms=per_eval_sum("plain_ms"),
             bound_ms=per_eval_sum("bound_ms"),
             bound_by="operations" if per_eval_sum("ops_ms") >= per_eval_sum("bytes_ms") else "bytes",
@@ -2395,7 +2921,8 @@ def main() -> int:
                               "serve entry points": entry_counts[k], "enhance": enh_counts[k],
                               "distill and artifact": dist_counts[k],
                               "ddp ranks, allgpus, preemption, evaluate_mp": ddp_counts[k],
-                              "diffuse (phase 11)": diffuse_counts[k]},
+                              "diffuse (phase 11)": diffuse_counts[k],
+                              "NCSN++ options (phase 12)": option_counts[k]},
             launches_per_ddp_micro_step_per_rank={"forward": TRAIN_PER_STEP[k][0], "backward": TRAIN_PER_STEP[k][1]},
             launches_per_distill_step={"forward": 3 * PER_EVAL[k], "backward": TRAIN_PER_STEP[k][1]},
             launches_per_micro_step={"forward": TRAIN_PER_STEP[k][0], "backward": TRAIN_PER_STEP[k][1]},

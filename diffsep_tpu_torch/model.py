@@ -135,21 +135,19 @@ def build_score_model(cfg: Mapping[str, Any]) -> nn.Module:
                                  num_sources=n_src)
     if not target.endswith("NCSNpp"):
         raise _unsupported("backbone", target)
-    if backbone_args.pop("remat", False):
-        raise _unsupported("remat", True)
-    for key, supported in (("transform", "exponent"), ("spec_trans_learnable", False)):
-        if sm.get(key, supported) != supported:
-            raise _unsupported(key, sm[key])
-    if not sm["stft_args"].get("center", True):
-        raise _unsupported("stft_args.center", False)
+    backbone_args = {k: tuple(v) if isinstance(v, list) else v for k, v in backbone_args.items()}
     backbone = NCSNpp(num_channels_in=2 * n_src + 2, num_channels_out=2 * n_src, **backbone_args)
+    stft_args = sm.get("stft_args") or {}
     return ScoreModelNCSNpp(
         backbone,
         num_sources=n_src,
-        n_fft=int(sm["stft_args"]["n_fft"]),
-        hop_length=int(sm["stft_args"]["hop_length"]),
-        spec_abs_exponent=float(sm["spec_abs_exponent"]),
-        spec_factor=float(sm["spec_factor"]),
+        n_fft=int(stft_args.get("n_fft", 510)),
+        hop_length=int(stft_args.get("hop_length", 128)),
+        center=bool(stft_args.get("center", True)),
+        transform=sm.get("transform", "exponent"),
+        spec_abs_exponent=float(sm.get("spec_abs_exponent", 0.5)),
+        spec_factor=float(sm.get("spec_factor", 3.0)),
+        spec_trans_learnable=bool(sm.get("spec_trans_learnable", False)),
     )
 
 

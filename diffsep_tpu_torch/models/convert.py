@@ -9,6 +9,9 @@ plus a transpose per leaf:
   flax Dense kernel (I, O)        -> Dense weight (O, I)
   flax GroupNorm scale            -> GroupNorm weight
   NIN W/b, Fourier W, biases      -> unchanged
+  fused resample ``Conv2d_0`` weight (OIHW already) -> unchanged
+  the learnable transform scalars ``spec_abs_exponent``, ``spec_factor``
+                                  -> unchanged, outside the backbone
 
 ``state_dicts_from_reference`` reads a reference Lightning checkpoint
 (``score_model.*`` keys in the port's own layout, and the EMA shadow list
@@ -57,6 +60,8 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
 def _deconvert_leaf(path: Tuple[str, ...], arr: np.ndarray):
     """One flax (path, array) -> one torch (path, array)."""
     name = path[-1]
+    if name == "weight" and len(path) >= 2 and path[-2].startswith("Conv2d"):
+        return path, arr  # FusedResampleConv keeps the torch layout
     if name == "kernel":
         if arr.ndim == 4:
             return path[:-1] + ("weight",), arr.transpose(3, 2, 0, 1)
@@ -81,15 +86,20 @@ def _module_index_unrename(path: Tuple[str, ...]) -> str:
     return ".".join(out)
 
 
+_TRANSFORM_SCALARS = ("spec_abs_exponent", "spec_factor")
+
+
 def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``ScoreModelNCSNpp`` params (backbone under 'backbone', numpy or
-    jax arrays) -> ``ScoreModelNCSNpp.state_dict()`` of the port."""
+    """JAX ``ScoreModelNCSNpp`` params (backbone under 'backbone', the
+    learnable transform scalars beside it; numpy or jax arrays) ->
+    ``ScoreModelNCSNpp.state_dict()`` of the port."""
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(params["backbone"]):
         path, arr = _deconvert_leaf(path, np.asarray(arr, np.float32))
-        out["backbone." + _module_index_unrename(path)] = torch.from_numpy(
-            np.array(arr, np.float32, order="C")
-        )
+        out["backbone." + _module_index_unrename(path)] = _tensor(arr)
+    for key in _TRANSFORM_SCALARS:
+        if key in params:
+            out[key] = _tensor(params[key])
     return out
 
 

@@ -8,18 +8,26 @@ call (another factor, a 2-D or longer filter, NCHW data) runs the plain
 ``upfirdn2d`` on the 2-D ``setup_kernel``, on the CPU or the card alike, as
 the JAX package computes such calls outside its TPU kernel
 (``upfirdn2d_ref``, an XLA convolution).
+
+``upsample_conv_2d`` and ``conv_downsample_2d`` are the fused resample
+convs of the ``with_conv`` resamplers (NCHW data, OIHW weight): the
+strided and transposed convs are the framework's (cuDNN on the card), as
+they are XLA convs outside any TPU kernel in the JAX package, and their
+FIR tails, whose pads no kernel serves, run the plain ``upfirdn2d``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import fir_resample2x
 from .upfirdn2d import upfirdn2d
 
 Tensor = torch.Tensor
 
-__all__ = ["setup_kernel", "upsample_2d", "downsample_2d"]
+__all__ = ["setup_kernel", "upsample_2d", "downsample_2d", "upsample_conv_2d", "conv_downsample_2d",
+           "naive_upsample_2d", "naive_downsample_2d"]
 
 
 def setup_kernel(k) -> np.ndarray:
@@ -62,3 +70,48 @@ def downsample_2d(x: Tensor, k=None, factor: int = 2, gain: float = 1.0,
     """FIR anti-aliased downsample by `factor`."""
     assert isinstance(factor, int) and factor >= 1
     return _resample(x, k, factor, gain, False, data_format)
+
+
+def upsample_conv_2d(x: Tensor, w: Tensor, k=None, factor: int = 2, gain: float = 1.0) -> Tensor:
+    """Transposed conv (stride ``factor``) then the FIR tail; x NCHW, w
+    (out_ch, in_ch, kh, kw). The JAX package computes the transposed conv as
+    an lhs-dilated correlation with the unflipped weight and full padding,
+    which is ``F.conv_transpose2d`` with the weight flipped in space."""
+    assert isinstance(factor, int) and factor >= 1
+    kh, kw = w.shape[2:]
+    assert kh == kw
+    k = setup_kernel([1.0] * factor if k is None else k) * (gain * factor**2)
+    p = (k.shape[0] - factor) - (kw - 1)
+    x = F.conv_transpose2d(x, w.flip((2, 3)).transpose(0, 1), stride=factor)
+    return upfirdn2d(x, k, pad=((p + 1) // 2 + factor - 1, p // 2 + 1))
+
+
+def conv_downsample_2d(x: Tensor, w: Tensor, k=None, factor: int = 2, gain: float = 1.0) -> Tensor:
+    """FIR low-pass then a VALID conv of stride ``factor``; x NCHW, w OIHW."""
+    assert isinstance(factor, int) and factor >= 1
+    kh, kw = w.shape[2:]
+    assert kh == kw
+    k = setup_kernel([1.0] * factor if k is None else k) * gain
+    p = (k.shape[0] - factor) + (kw - 1)
+    x = upfirdn2d(x, k, pad=((p + 1) // 2, p // 2))
+    return F.conv2d(x, w, stride=factor)
+
+
+def naive_upsample_2d(x: Tensor, factor: int = 2, data_format: str = "NCHW") -> Tensor:
+    """Nearest-neighbour upsampling."""
+    if data_format == "NHWC":
+        b, h, w, c = x.shape
+        x = x.reshape(b, h, 1, w, 1, c).expand(b, h, factor, w, factor, c)
+        return x.reshape(b, h * factor, w * factor, c)
+    b, c, h, w = x.shape
+    x = x.reshape(b, c, h, 1, w, 1).expand(b, c, h, factor, w, factor)
+    return x.reshape(b, c, h * factor, w * factor)
+
+
+def naive_downsample_2d(x: Tensor, factor: int = 2, data_format: str = "NCHW") -> Tensor:
+    """Mean over factor x factor blocks."""
+    if data_format == "NHWC":
+        b, h, w, c = x.shape
+        return x.reshape(b, h // factor, factor, w // factor, factor, c).mean(dim=(2, 4))
+    b, c, h, w = x.shape
+    return x.reshape(b, c, h // factor, factor, w // factor, factor).mean(dim=(3, 5))

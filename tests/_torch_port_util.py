@@ -45,12 +45,14 @@ PORT_TINY_CONFIG = {
 }
 
 
-def jax_score_model(num_sources: int = 2) -> JaxScoreModel:
-    backbone = JaxNCSNpp(
+def jax_score_model(num_sources: int = 2, backbone=None, **score) -> JaxScoreModel:
+    """The tiny JAX score model; ``backbone`` and ``score`` override its
+    backbone's and frontend's fields."""
+    net = JaxNCSNpp(
         num_channels_in=2 * num_sources + 2, num_channels_out=2 * num_sources,
-        **TINY_BACKBONE,
+        **{**TINY_BACKBONE, **(backbone or {})},
     )
-    return JaxScoreModel(backbone=backbone, num_sources=num_sources, **TINY_SCORE)
+    return JaxScoreModel(backbone=net, num_sources=num_sources, **{**TINY_SCORE, **score})
 
 
 def port_score_model(num_sources: int = 2) -> ScoreModelNCSNpp:
@@ -65,7 +67,8 @@ def random_params(model, rng: np.random.Generator, n_samples: int = 1000):
     """A param tree of the JAX model's structure filled with seeded values of
     unit scale. The initializers' init_scale=0 layers would leave whole
     branches at ~1e-10; random values make every layer count in a parity
-    check. The Fourier projection keeps its N(0, 16^2) init."""
+    check. The Fourier projection keeps its N(0, 16^2) init, and the
+    learnable transform constants stay within 10% of their initial values."""
     xt = jnp.zeros((1, model.num_sources, n_samples), jnp.float32)
     mix = jnp.zeros((1, 1, n_samples), jnp.float32)
     t = jnp.ones((1,), jnp.float32)
@@ -73,6 +76,8 @@ def random_params(model, rng: np.random.Generator, n_samples: int = 1000):
 
     def fill(path, leaf):
         name = path[-1].key
+        if name in ("spec_abs_exponent", "spec_factor"):
+            return np.float32(getattr(model, name) * (1.0 + 0.1 * rng.standard_normal()))
         if name == "W" and len(leaf.shape) == 1:
             return (16.0 * rng.standard_normal(leaf.shape)).astype(np.float32)
         if len(leaf.shape) >= 2:

@@ -763,12 +763,14 @@ def test_threaded_sharded_separate_launches_exactly(dev):
 # --- the DiffuSE recipe and the library backbones (no hand kernel) --------
 def _randomized_pair(make, dev, seed):
     """``make(device)`` twice, the CPU copy's weights replaced by seeded
-    unit-scale values (the zero output projection included) and copied to
-    the card."""
+    unit-scale values (the zero output projection included; scalars, the
+    learnable transform constants, keep theirs) and copied to the card."""
     cpu = make("cpu")
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for p in cpu.parameters():
+            if p.ndim == 0:
+                continue
             if p.ndim >= 2:
                 p.copy_(torch.randn(p.shape, generator=g) / (p.numel() / p.shape[0]) ** 0.5)
             else:
@@ -863,3 +865,110 @@ def test_aux_models_on_the_card_match_the_cpu(dev, family, variant, flag):
         inputs = (torch.randn((2, 16, 20, 8), generator=g),)
     out_err, grad_err = _card_vs_cpu(make, inputs, dev, 5)
     assert out_err <= 1e-4 and grad_err <= 1e-3, (out_err, grad_err)
+
+
+# --- the NCSN++ options ----------------------------------------------------
+# chip_smoke.py's option sets A-D (backbone_args, frontend) over the flagship
+OPTION_SETS = {
+    "A": ({"fir": False, "progressive": "none", "progressive_input": "none", "embedding_type": "positional",
+           "scale_by_sigma": False}, {"transform": "log", "spec_factor": 3.0}),
+    "B": ({"progressive_input": "residual"}, {"spec_trans_learnable": True}),
+    "C": ({"resblock_type": "ddpm", "progressive": "residual", "progressive_input": "input_skip",
+           "progressive_combine": "cat", "centered": True}, {"transform": "none", "stft_args": {"center": False}}),
+    "D": ({"resblock_type": "ddpm", "fir": False, "progressive": "none", "progressive_input": "none",
+           "conditional": False, "nonlinearity": "elu", "skip_rescale": False}, {}),
+}
+OPTION_PER_EVAL = {"A": {"conv3x3": 100}, "B": {"conv3x3": 106, "fir_down2x": 12, "fir_up2x": 18},
+                   "C": {"conv3x3": 77, "fir_down2x": 6}, "D": {"conv3x3": 82}}
+
+
+def _option_config(name, **backbone):
+    bb, frontend = OPTION_SETS[name]
+    frontend = dict(frontend)
+    return {"score_model": {"backbone_args": dict(bb, **backbone), "stft_args": frontend.pop("stft_args", {}),
+                            **frontend}}
+
+
+@pytest.mark.parametrize("name", sorted(OPTION_SETS))
+def test_option_set_kernel_calls_match_plain(dev, name):
+    """One full-width evaluation of an option set (bf16 compute, where the
+    JAX package's promotions leave some layers in f32): its launches per
+    evaluation, and every conv and FIR call it makes against the plain
+    version on the same input."""
+    from unittest import mock
+
+    from diffsep_tpu_torch.model import DiffSepModel
+
+    model = DiffSepModel(_option_config(name), device=dev, seed=0)
+    calls = []
+    real = {"conv3x3": conv3x3.conv3x3, "fir_down2x": fir_resample2x.fir_down2x,
+            "fir_up2x": fir_resample2x.fir_up2x}
+    plain = {"conv3x3": conv3x3.conv3x3_plain, "fir_down2x": fir_resample2x.fir_down2x_plain,
+             "fir_up2x": fir_resample2x.fir_up2x_plain}
+
+    def recorder(kind):
+        def call(x, *args):
+            y = real[kind](x, *args)
+            calls.append((kind, x, args, y))
+            return y
+        return call
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    xt, mix = torch.randn((2, 2, 40000), generator=g, device=dev), torch.randn((2, 1, 40000), generator=g, device=dev)
+    _build.reset_counts()
+    with mock.patch.object(conv3x3, "conv3x3", recorder("conv3x3")), \
+            mock.patch.object(fir_resample2x, "fir_down2x", recorder("fir_down2x")), \
+            mock.patch.object(fir_resample2x, "fir_up2x", recorder("fir_up2x")), torch.no_grad():
+        score = model.score_fn(0.3 * xt, torch.tensor([0.4, 0.9], device=dev), 0.3 * mix)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.launch_counts.items() if v} == OPTION_PER_EVAL[name]
+    assert torch.isfinite(score).all()
+    for kind, x, args, y in calls:
+        _close(y, plain[kind](x, *args), x.dtype)
+
+
+@pytest.mark.parametrize("name", sorted(OPTION_SETS))
+def test_option_set_on_the_card_matches_the_cpu(dev, name):
+    """Each option set at nf=16 in float32, 2 x 1 s: the score within 1e-3
+    of its scale and the parameter gradients (the learnable transform
+    constants included) within 1e-3 of their norm, card against CPU."""
+    from diffsep_tpu_torch.model import DiffSepModel
+
+    cfg = _option_config(name, nf=16, ch_mult=(1, 1, 2, 2), num_res_blocks=1, dtype="float32")
+    g = torch.Generator().manual_seed(2)
+    inputs = (0.3 * torch.randn((2, 2, 8000), generator=g), torch.tensor([0.4, 0.9]),
+              0.3 * torch.randn((2, 1, 8000), generator=g))
+    _build.reset_counts()
+    score_err, grad_err = _card_vs_cpu(lambda d: DiffSepModel(cfg, device=d).score_model, inputs, dev, 3)
+    assert score_err <= 1e-3 and grad_err <= 1e-3, (score_err, grad_err)
+    assert _build.launch_counts["conv3x3"] > 0
+
+
+@pytest.mark.parametrize("name", ["B", "C"])
+def test_remat_gradients_on_the_card_equal_no_remat(dev, name):
+    """remat recomputes each residual and attention block in the backward,
+    which launches their kernels again; the gradients are those without it
+    (nf=16, float32, cuDNN deterministic), within 1e-6 of their norm."""
+    from diffsep_tpu_torch.model import DiffSepModel
+
+    cfg = _option_config(name, nf=16, ch_mult=(1, 1, 2, 2), num_res_blocks=1, dtype="float32", remat=True)
+    _, model = _randomized_pair(lambda d: DiffSepModel(cfg, device=d).score_model, dev, 4)
+    g = torch.Generator().manual_seed(5)
+    inputs = (0.3 * torch.randn((2, 2, 8000), generator=g), torch.tensor([0.4, 0.9]),
+              0.3 * torch.randn((2, 1, 8000), generator=g))
+    w = torch.randn((2, 2, 8000), generator=g)
+    out, counts = {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (True, False):
+            model.backbone.remat = remat
+            _build.reset_counts()
+            out[remat] = _forward_and_grads(model, inputs, w, dev)
+            torch.cuda.synchronize()
+            counts[remat] = _build.launch_counts["conv3x3"] - _build.backward_counts["conv3x3"]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (_, g_r), (_, g_n) = out[True], out[False]
+    norm = sum(float(v.double().square().sum()) for v in g_n.values()) ** 0.5
+    assert max(float((g_r[k] - g_n[k]).abs().max()) for k in g_n) <= 1e-6 * norm
+    assert counts[False] < counts[True] < 2 * counts[False], counts

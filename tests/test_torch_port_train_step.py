@@ -38,6 +38,10 @@ VARIANTS = {
         loss=dict(init_hack=False, train_source_order="random"),
         optim=dict(lr=1e-3, weight_decay=0.01, lr_warmup=3, scheduler="cosine", scheduler_t_max=10,
                    grad_clipper="autoclip", autoclip_percentile=50.0)),
+    # the recipe with the learnable transform constants and remat
+    "learnable_remat": dict(loss=dict(init_hack=5, init_hack_p=0.5, train_source_order="power"),
+                            optim=dict(lr=1e-3, grad_clipper="fixed", clip_max_norm=5.0),
+                            model=dict(backbone={"remat": True}, score={"spec_trans_learnable": True})),
 }
 
 
@@ -45,7 +49,10 @@ def _port_config(v):
     o = v["optim"]
     clip = ({"_target_": "FixedClipper", "max_norm": o["clip_max_norm"]} if o["grad_clipper"] == "fixed"
             else {"_target_": "AutoClipper", "p": o["autoclip_percentile"]})
-    model = dict(PORT_TINY_CONFIG, **v["loss"], grad_clipper=clip,
+    opts = v.get("model", {})
+    score_model = dict(PORT_TINY_CONFIG["score_model"], **opts.get("score", {}))
+    score_model["backbone_args"] = dict(score_model["backbone_args"], **opts.get("backbone", {}))
+    model = dict(PORT_TINY_CONFIG, score_model=score_model, **v["loss"], grad_clipper=clip,
                  optimizer={"lr": o["lr"], "weight_decay": o.get("weight_decay", 0.0)},
                  lr_warmup=o.get("lr_warmup"),
                  scheduler={"name": o["scheduler"], "T_max": o["scheduler_t_max"]} if "scheduler" in o else None)
@@ -71,7 +78,8 @@ def _rel(got: dict, want: dict, base_got=None, base_want=None):
 def test_four_accumulated_micro_steps_match_jax(variant):
     v = VARIANTS[variant]
     rng = np.random.default_rng(3)
-    jm = jax_score_model()
+    opts = v.get("model", {})
+    jm = jax_score_model(backbone=opts.get("backbone"), **opts.get("score", {}))
     params = random_params(jm, rng)
     net = jax.jit(jm.apply)
     loss_cfg = jax_trainer.LossConfig(**v["loss"])
