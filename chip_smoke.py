@@ -12,7 +12,11 @@ Phases, each of which fails the run on any error:
      and bfloat16, against its plain PyTorch version on the card, timed
      beside the plain version and one library call (cuDNN with TF32 off),
      each as the device time of back-to-back calls, with the plan that
-     ops/conv3x3.plan_conv3x3 or ops/fir_resample2x.plan_fir2x chose;
+     ops/conv3x3.plan_conv3x3 or ops/fir_resample2x.plan_fir2x chose. A
+     float32 conv's cuDNN call is timed with cudnn.benchmark off (its
+     heuristic's algorithm) and on (its fastest), and the "tf32x3" plan's
+     weight split is held bit for bit to its plain version and timed; the
+     float32 convs are summed per evaluation;
   4. model phase: a small float32 model's score on the card (kernels)
      against the same score on the CPU (plain versions), with witnesses:
      the card on the plain versions, and both with a two-pass GroupNorm
@@ -125,7 +129,9 @@ Phases, each of which fails the run on any error:
      (dtype=float32, remat=true) through cli.train.main at 6 x 5 s for
      F32_WARMUP + F32_TIMED micro-steps with REMAT_PER_STEP launches each,
      one micro-step's gradients with remat against without (REMAT_TOL of
-     the norm) and both peaks; and the flagship on one 70 s mixture, its
+     the norm) and both peaks, its kernel shapes timed (float32 at batch 6,
+     against cuDNN as in phase 3) and summed per micro-step; and the
+     flagship on one 70 s mixture, its
      blockwise attention (4416 tokens) against the naive one (LONG_TOL of
      scale), device ms and peak of each.
 
@@ -155,6 +161,7 @@ from unittest import mock
 import numpy as np
 
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense, tensor cores / CUDA cores
+TF32_FLOPS = 495e12  # H100 SXM dense TF32: the "tf32x3" conv does 3 TF32 products per f32 one
 HBM_BYTES_PER_S = 3.35e12
 SERVE_BATCH, SERVE_SECONDS, FS = 2, 5, 8000
 PER_EVAL = {"conv3x3": 106, "fir_down2x": 18, "fir_up2x": 18}  # flagship NCSN++ launches per score evaluation
@@ -355,7 +362,14 @@ def randomize_(module, seed):
 
 def check_kernel(kind, shape, cout, dtype_name, dev, seed, cycles_per_ms, timed=True):
     """Kernel vs plain on one shape: error, times (None unless ``timed``),
-    bound."""
+    bound. The kernel runs without grad mode, as serving runs it (the
+    "tf32x3" conv keeps its split weight). A float32 conv also gets its
+    library call timed twice, with cudnn.benchmark off (the heuristic's
+    algorithm, ``library_heuristic_ms``) and on (the fastest of cuDNN's,
+    ``library_benchmark_ms``; ``library_ms`` is the better of the two), the
+    bound of three TF32 products (``bound_3xtf32_ms``), and, on the
+    "tf32x3" plan, its weight split kernel held bit for bit to its plain
+    version and timed alone (``split_ms``: once per call in grad mode)."""
     import torch
     import torch.nn.functional as F
 
@@ -413,7 +427,9 @@ def check_kernel(kind, shape, cout, dtype_name, dev, seed, cycles_per_ms, timed=
         plan = dict(variant=p.variant, vec=p.vec, rows=p.rows, cols=p.cols, stages=p.stages, grid=list(p.grid))
         flops = (12.0 if up else 40.0) * n_out  # the kernel's multiply-adds x 2
         nbytes = (x.numel() + n_out) * item
-    got, want, lib = kern(), plain(), library()
+    with torch.no_grad():
+        got = kern()
+    want, lib = plain(), library()
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     scale = max(1.0, want.float().abs().max().item())
@@ -427,10 +443,30 @@ def check_kernel(kind, shape, cout, dtype_name, dev, seed, cycles_per_ms, timed=
         bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
         ops_ms=t_ops, bytes_ms=t_bytes,
     )
+    f32_conv = kind == "conv3x3" and dtype_name == "float32"
+    if f32_conv:
+        row["bound_3xtf32_ms"] = max(3 * flops / TF32_FLOPS * 1e3, t_bytes)
+    if plan.get("variant") == "tf32x3":
+        split = conv_mod.tf32_split_weight(wt)
+        row["split_exact"] = torch.equal(split.view(torch.int32), conv_mod.tf32_split_weight_plain(wt).view(torch.int32))
+        row["ok"] = row["ok"] and row["split_exact"]
     if timed:
-        ms, library_ms = time_ms(kern, cycles_per_ms), time_ms(library, cycles_per_ms)
+        with torch.no_grad():
+            ms = time_ms(kern, cycles_per_ms)
+        library_ms = time_ms(library, cycles_per_ms)
         row.update(ms=ms, plain_ms=time_ms(plain, cycles_per_ms), library_ms=library_ms,
-                   tflops=flops / ms / 1e9, ms_per_library_ms=ms / library_ms)
+                   tflops=flops / ms / 1e9)
+        if f32_conv:
+            prev = torch.backends.cudnn.benchmark
+            torch.backends.cudnn.benchmark = True
+            try:
+                tuned = time_ms(library, cycles_per_ms)
+            finally:
+                torch.backends.cudnn.benchmark = prev
+            row.update(library_heuristic_ms=library_ms, library_benchmark_ms=tuned, library_ms=min(library_ms, tuned))
+        if "split_exact" in row:
+            row["split_ms"] = time_ms(lambda: conv_mod.tf32_split_weight(wt), cycles_per_ms)
+        row["ms_per_library_ms"] = ms / row["library_ms"]
     return row
 
 
@@ -2321,17 +2357,24 @@ def options_phase(dev, card, cycles_per_ms, tmp, data, checked):
         assert got == want, (label, got, want)
         return got
 
-    def hold(seen, label):
+    def hold(seen, label, per_step=None):
         """Every kernel call in ``seen`` that no phase has held yet, against
-        its plain version on the card (untimed)."""
+        its plain version on the card: untimed, or, given the calls of one
+        micro-step (``per_step``), timed beside the library call."""
         new = sorted(k for k in seen if k not in checked)
         for i, (kind, shape, cout, dtype_name) in enumerate(new):
-            r = check_kernel(kind, shape, cout, dtype_name, dev, 300 + len(checks), cycles_per_ms, timed=False)
+            r = check_kernel(kind, shape, cout, dtype_name, dev, 300 + len(checks), cycles_per_ms,
+                             timed=per_step is not None)
             r["path"] = label
+            times = ""
+            if per_step is not None:
+                r["launches_per_micro_step"] = per_step[kind, shape, cout, dtype_name]
+                times = (f" x{r['launches_per_micro_step']} ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
+                         f"lib {r['library_ms']:.4f}{f32_lib_text(r)} bound {r['bound_ms'] * 1e3:.3f} us")
             checks.append(r)
             checked.add((kind, shape, cout, dtype_name))
             log(f"[options-kernel] {label}: {kind} {list(shape)}->{cout} {dtype_name}:{plan_text(r['plan'])} "
-                f"err {r['max_abs_err']:.3g} (tol {r['tol']:.3g})")
+                f"err {r['max_abs_err']:.3g} (tol {r['tol']:.3g}){times}")
         return len(new)
 
     n = SERVE_SECONDS * FS
@@ -2531,7 +2574,7 @@ def options_phase(dev, card, cycles_per_ms, tmp, data, checked):
              "time": b_rng.uniform(size=TRAIN_BATCH).astype(np.float32)}
     tgt6 = torch.from_numpy(0.1 * b_rng.standard_normal((TRAIN_BATCH, 2, n), dtype=np.float32))
     mix6 = tgt6.sum(dim=1, keepdim=True)
-    res, peaks, grad_shapes = {}, {}, collections.Counter()
+    res, peaks, grad_shapes = {}, {}, {True: collections.Counter(), False: collections.Counter()}
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -2540,7 +2583,7 @@ def options_phase(dev, card, cycles_per_ms, tmp, data, checked):
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            with recording_kernels(grad_shapes):
+            with recording_kernels(grad_shapes[remat]):
                 res[remat] = loss_and_grads(model, draws, mix6, tgt6)
             torch.cuda.synchronize()
             peaks[remat] = torch.cuda.max_memory_allocated() / 2**30
@@ -2549,10 +2592,14 @@ def options_phase(dev, card, cycles_per_ms, tmp, data, checked):
     gr, gn = res[True][1], res[False][1]
     norm = torch.sqrt(sum((g.double() ** 2).sum() for g in gn.values())).item()
     remat_err = max((gr[k] - gn[k]).abs().max().item() for k in gn) / norm
-    n_new = hold(grad_shapes, "f32 + remat micro-step")
+    n_new = hold(grad_shapes[True] + grad_shapes[False], "f32 + remat micro-step", per_step=grad_shapes[True])
     out["f32_remat_grad_check"] = dict(rel_err=remat_err, tol=REMAT_TOL, norm=norm, peak_gib_remat=peaks[True],
                                        peak_gib_no_remat=peaks[False], losses=[res[True][0], res[False][0]],
                                        new_kernel_shapes=n_new)
+    remat_rows = [r for r in checks if r["path"] == "f32 + remat micro-step"]
+    out["f32_remat_conv_per_micro_step"] = f32 = f32_sums(remat_rows, "launches_per_micro_step")
+    log(f"[options] f32 + remat micro-step at {TRAIN_BATCH} x {SERVE_SECONDS} s, float32 conv3x3 forward "
+        f"({f32['launches']} launches; the split passes run once per call in grad mode): {f32_text(f32)} ({card})")
     log(f"[options] f32 micro-step at {TRAIN_BATCH} x {SERVE_SECONDS} s: gradients with remat vs without "
         f"{remat_err:.3g} of their norm {norm:.4g} (tol {REMAT_TOL}); peak {peaks[True]:.2f} GiB with remat, "
         f"{peaks[False]:.2f} without ({card}); {n_new} new kernel shapes held")
@@ -2676,6 +2723,47 @@ def ptxas_lines(text):
             yield f"{entry}: {line.strip()}"
 
 
+def f32_lib_text(r):
+    if "library_heuristic_ms" not in r:
+        return ""
+    split = f", split pass {r['split_ms']:.4f}" if "split_ms" in r else ""
+    return (f" (cuDNN heuristic {r['library_heuristic_ms']:.4f}, benchmark {r['library_benchmark_ms']:.4f}){split}; "
+            f"bound 3xTF32 {r['bound_3xtf32_ms'] * 1e3:.3f} us")
+
+
+def f32_sums(rows, per, kind="conv3x3"):
+    """The float32 rows of kernel ``kind`` summed over their launches
+    (``per`` names the count): hand kernel ms by plan, plain, the library
+    call (for the conv, cuDNN at its best and with its heuristic), the bound
+    (for the conv, at the FFMA peak and as three TF32 products), the conv's
+    split pass as grad mode runs it, and the shapes where the hand kernel
+    is slower than the library call at its best."""
+    f32 = [r for r in rows if r["kernel"] == kind and r["dtype"] == "float32" and r.get("ms") is not None]
+
+    def total(key):
+        have = [r for r in f32 if r.get(key) is not None]
+        return sum(r[key] * r[per] for r in have) if have else None
+
+    by_plan = collections.defaultdict(float)
+    for r in f32:
+        by_plan[r["plan"]["variant"]] += r["ms"] * r[per]
+    return dict(launches=sum(r[per] for r in f32), ms=total("ms"), ms_by_plan=dict(by_plan),
+                plain_ms=total("plain_ms"), library_ms=total("library_ms"),
+                library_heuristic_ms=total("library_heuristic_ms"), library_benchmark_ms=total("library_benchmark_ms"),
+                bound_ms=total("bound_ms"), bound_3xtf32_ms=total("bound_3xtf32_ms"), split_ms=total("split_ms"),
+                slower_than_library=[[r["shape"], r["cout"], r["ms"], r["library_ms"]] for r in f32
+                                     if r["ms"] > r["library_ms"]])
+
+
+def f32_text(f):
+    v = {k: "n/a" if x is None else f"{x:.3f}" for k, x in f.items() if not isinstance(x, (dict, list))}
+    plans = ", ".join(f"{k} {x:.3f}" for k, x in sorted(f["ms_by_plan"].items()))
+    return (f"hand {v['ms']} ms ({plans}; split passes {v['split_ms']} more in grad mode), plain "
+            f"{v['plain_ms']}, cuDNN best {v['library_ms']} (heuristic {v['library_heuristic_ms']}, "
+            f"benchmark {v['library_benchmark_ms']}), bound {v['bound_ms']} at the FFMA peak, "
+            f"{v['bound_3xtf32_ms']} as 3 TF32 products; slower than cuDNN at {f['slower_than_library']}")
+
+
 def plan_text(plan):
     if "splits" in plan:  # conv3x3
         return (f" plan {plan['variant']} {plan['bm']}x{plan['bn']} stages {plan['stages']} "
@@ -2747,10 +2835,12 @@ def main() -> int:
             results.append(r)
             log(f"[kernel] {k} {shape}->{cout} {dtype_name} x{cnt}:{plan_text(r['plan'])} "
                 f"err {r['max_abs_err']:.3g} (tol {r['tol']:.3g}) ms {r['ms']:.4f} "
-                f"plain {r['plain_ms']:.4f} lib {r['library_ms']:.4f} "
+                f"plain {r['plain_ms']:.4f} lib {r['library_ms']:.4f}{f32_lib_text(r)} "
                 f"ms/lib {r['ms_per_library_ms']:.3g} {r['tflops']:.1f} TFLOP/s "
                 f"bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
     report["kernel_checks"] = results
+    report["f32_conv_per_eval"] = f32 = f32_sums(results, "launches_per_eval")
+    log(f"[kernel] float32 conv3x3 per flagship evaluation ({PER_EVAL['conv3x3']} launches): {f32_text(f32)} ({card})")
     bad = [r for r in results if not r["ok"]]
     assert not bad, f"kernel mismatches: {bad}"
 
@@ -2879,7 +2969,9 @@ def main() -> int:
         report["options"], option_counts = options_phase(dev, card, cycles_per_ms, tmp, Path(tmp) / "wsj0_mix", held)
 
     # summary per kernel: the bf16 (serving) times summed over one score
-    # evaluation's launches at batch 2, and the bf16 times summed over one
+    # evaluation's launches at batch 2 (the same in float32 apart, with the
+    # f32 conv's plans, cuDNN heuristic and best, and both bounds; and the
+    # f32 conv per f32 + remat micro-step of phase 12), and the bf16 times summed over one
     # training micro-step's launches (forward and backward) at batch 6 and
     # at the enhancement recipe's batch 4 x 3 s; launches over the main
     # paths: the serving run at N=30, the training run, the serving entry
@@ -2906,6 +2998,7 @@ def main() -> int:
         def per_step_sum(key, rows=tr):
             return sum(r[key] * r["launches_per_micro_step"] for r in rows)
 
+        f32_remat = report["options"]["f32_remat_conv_per_micro_step"] if k == "conv3x3" else None
         summary.append(dict(
             name=k, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=(serve_counts[k] + train["launches"][k] + entry_counts[k] + enh_counts[k] + dist_counts[k]
@@ -2932,6 +3025,8 @@ def main() -> int:
             enhance_train_plain_ms=per_step_sum("plain_ms", enh_tr),
             enhance_train_bound_ms=per_step_sum("bound_ms", enh_tr),
             enhance_train_library_ms=per_step_sum("library_ms", enh_tr),
+            float32_per_eval=f32_sums(rows, "launches_per_eval", k),
+            float32_per_f32_remat_micro_step=f32_remat,
         ))
     report["summary"] = summary
     if args.report is not None:

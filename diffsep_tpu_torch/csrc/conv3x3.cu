@@ -43,15 +43,36 @@
 //    shared memory once, so the ring streams A alone. These are bound by
 //    bytes. "tma_narrow" serves the large levels: see its kernel.
 //
-// Split-K (grid z = S > 1, "tma", "wgmma" and "narrow") serves the deep
-// levels, where M-tiles x N-tiles is far below the 132 SMs: split z walks
-// its own range of the (tap, slice) walk and writes an f32 partial tile; a
-// second pass (conv3x3_splitk_reduce) sums the S partials in a fixed order,
-// adds the bias and rounds. No atomics, so the result is bitwise
-// deterministic.
+// The float32 design:
 //
-// "generic" (f32, bf16 with Cin % 64 != 0 as the stem's Cin = 6, and
-// operands not 16-byte aligned): each block computes a 64 x 64 output tile
+// 4. "tf32x3" (f32, Cin % 32 == 0, Cout % 64 == 0: every trunk conv; and
+//    with an 8-wide N tile, as "narrow", the output convs, Cout < 64). The
+//    "wgmma" loop over (tap, 32-channel slice), whose rows are again 128
+//    bytes, on the tensor cores in TF32 with split operands, so that the
+//    result keeps float32 accuracy: each operand v is hi = tf32(v) plus
+//    lo = tf32(v - hi), and the products hi.hi + hi.lo + lo.hi (lo.lo is
+//    below 2^-22 of the product) go into f32 accumulators. One TF32 pass
+//    alone keeps ~3 decimal digits. tf32 wgmma reads both operands K-major
+//    only, so the weight is made K-major, split and laid out for the
+//    kernel by a pass of its own (conv3x3_tf32_split_weight, cached by the
+//    wrapper per weight version); A comes from registers: each consumer
+//    thread loads its rows of the staged slice, splits them and issues
+//    three wgmma (m64nBNk8) per k8 step. See conv3x3_tf32x3_kernel. Bound
+//    by operations: three TF32 products at 495 TFLOP/s give 165 TFLOP/s of
+//    float32 work, against 67 on the CUDA cores; next, the bytes every
+//    block takes from L2 (its A rows nine times, the split weight's hi and
+//    lo once), which 192-row tiles spread over more rows.
+//
+// Split-K (grid z = S > 1, "tma", "wgmma", "narrow" and "tf32x3") serves the
+// deep levels, where M-tiles x N-tiles is far below the 132 SMs: split z
+// walks its own range of the (tap, slice) walk and writes an f32 partial
+// tile; a second pass (conv3x3_splitk_reduce) sums the S partials in a
+// fixed order, adds the bias and rounds to the output's type. No atomics,
+// so the result is bitwise deterministic.
+//
+// "generic" (f32 outside "tf32x3": Cin = 6, Cout = 6, other channel counts;
+// bf16 with Cin % 64 != 0 as the stem's Cin = 6; operands not 16-byte
+// aligned): each block computes a 64 x 64 output tile
 // and walks K in slices of 32, gathering A straight from the unpadded input
 // with predicated loads (no padded copy). bf16 runs on the tensor cores
 // through WMMA (16x16x16 mma.sync tiles, four warps of 2x2 tiles each); f32
@@ -79,6 +100,13 @@ typedef __nv_bfloat16 bf16;
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+// Two neighbouring outputs, rounded once to the output's type.
+__device__ __forceinline__ void store2(float* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); }
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 
 struct Shape {
   int B, H, W, Cin, Cout, M, K;
@@ -283,11 +311,11 @@ __device__ __forceinline__ void mma_slice(float (&acc)[BN / 2], uint32_t a_tile,
 
 // Epilogue of the wgmma kernels: this thread's accumulators (m64nBN layout:
 // register 4 q + 2 h + e is output row rows[h], column n0 + 8 q + 2 (lane %
-// 4) + e) to the output, plus bias and rounded to bf16, or, when split, to
+// 4) + e) to the output, plus bias and rounded to T, or, when split, to
 // split blockIdx.z's f32 partial. rows[h] < 0: no such output row.
-template <int BN, bool NARROW>
+template <int BN, bool NARROW, typename T>
 __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2], const int (&rows)[2], int n0, const Shape& s,
-                                           const bf16* __restrict__ bias, bf16* __restrict__ out,
+                                           const T* __restrict__ bias, T* __restrict__ out,
                                            float* __restrict__ partial, int splits) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -307,14 +335,14 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2], const int
           *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
         }
       } else {
-        bf16* dst = out + (size_t)row * s.Cout + col;
-        const float b0 = bias && col < s.Cout ? __bfloat162float(bias[col]) : 0.f;
-        const float b1 = bias && col + 1 < s.Cout ? __bfloat162float(bias[col + 1]) : 0.f;
+        T* dst = out + (size_t)row * s.Cout + col;
+        const float b0 = bias && col < s.Cout ? to_f32(bias[col]) : 0.f;
+        const float b1 = bias && col + 1 < s.Cout ? to_f32(bias[col + 1]) : 0.f;
         if (NARROW) {
-          if (col < s.Cout) dst[0] = __float2bfloat16(v0 + b0);
-          if (col + 1 < s.Cout) dst[1] = __float2bfloat16(v1 + b1);
+          if (col < s.Cout) dst[0] = from_f32<T>(v0 + b0);
+          if (col + 1 < s.Cout) dst[1] = from_f32<T>(v1 + b1);
         } else {
-          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0 + b0, v1 + b1);
+          store2(dst, v0 + b0, v1 + b1);
         }
       }
     }
@@ -446,14 +474,15 @@ conv3x3_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   store_tile<BN, NARROW>(acc, rows, n0, s, bias, out, partial, splits);
 }
 
-// Split-K's second pass: out = bf16(sum over z in order of partial[z] + bias).
-__global__ void conv3x3_splitk_reduce(const float* __restrict__ partial, const bf16* __restrict__ bias,
-                                      bf16* __restrict__ out, int splits, int mn, int cout) {
+// Split-K's second pass: out = T(sum over z in order of partial[z] + bias).
+template <typename T>
+__global__ void conv3x3_splitk_reduce(const float* __restrict__ partial, const T* __restrict__ bias,
+                                      T* __restrict__ out, int splits, int mn, int cout) {
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < mn; e += gridDim.x * blockDim.x) {
     float v = 0.f;
     for (int z = 0; z < splits; ++z) v += partial[(size_t)z * mn + e];
-    if (bias) v += __bfloat162float(bias[e % cout]);
-    out[e] = __float2bfloat16(v);
+    if (bias) v += to_f32(bias[e % cout]);
+    out[e] = from_f32<T>(v);
   }
 }
 
@@ -670,17 +699,188 @@ conv3x3_tma_narrow_kernel(const __grid_constant__ CUtensorMap x_map, const bf16*
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32 on Hopper: "tf32x3", the implicit GEMM on the tensor cores with
+// split operands.
+//
+// K is walked as (tap, 32-channel slice): a row of a staged A slice is 32
+// contiguous floats of one neighbour pixel, 128 bytes in the 128-byte
+// swizzle, brought by 16-byte cp.async (zero fill at the halo and past the
+// last pixel) as in "wgmma". The weight arrives pre-split (hi, then lo) and
+// K-major: (2, Cout, 9 Cin), so a B slice is BN rows of 128 bytes per half,
+// the layout tf32 wgmma reads. Within each slice the split pass permutes K
+// so that A's register fragments come from contiguous channels: logical
+// column 8 kk + c of the slice (k8 step kk, column c of the m16n8k8 tf32
+// fragment) is channel 8 (c % 4) + 2 kk + c / 4. A thread of lane % 4 = t
+// then holds channels 8 t .. 8 t + 7 of its two rows for all four k8 steps:
+// two 16-byte shared loads per row, conflict-free under the swizzle.
+constexpr int F32_SLICE = 32;  // channels per K slice
+
+__host__ __device__ constexpr size_t tf32x3_smem_bytes(int nwg, int bn, int stages) {
+  return 1024 + (size_t)stages * (nwg * 64 * A_ROW_BYTES + 2 * bn * 128);
+}
+
+// The K-major split weight: hi at split[n * K + k], lo at split[Cout * K +
+// n * K + k], for the HWIO weight seen as (K = 9 Cin, Cout), its slices
+// permuted as above. A 32 x 32 tile per block, transposed through shared
+// memory so that both the reads and the writes are coalesced.
+__global__ void conv3x3_tf32_split_weight(const float* __restrict__ w, float* __restrict__ split, int K, int cout) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32, tx = threadIdx.x;
+  for (int r = threadIdx.y; r < 32; r += blockDim.y)
+    tile[r][tx] = k0 + r < K && n0 + tx < cout ? w[(size_t)(k0 + r) * cout + n0 + tx] : 0.f;
+  __syncthreads();
+  const int kk = tx / 8, c = tx % 8, src = 8 * (c % 4) + 2 * kk + c / 4;  // K slices start at multiples of 32
+  for (int r = threadIdx.y; r < 32; r += blockDim.y) {
+    const int n = n0 + r, k = k0 + tx;
+    if (n >= cout || k >= K) continue;
+    const float v = tile[src][r];
+    const uint32_t hi = hopper::to_tf32(v);
+    split[(size_t)n * K + k] = __uint_as_float(hi);
+    split[(size_t)cout * K + (size_t)n * K + k] = __uint_as_float(hopper::to_tf32(v - __uint_as_float(hi)));
+  }
+}
+
+// NWG consumer warpgroups of 64 rows each (BM = 64 NWG), all of whose
+// threads also issue the cp.async of the ring. Per slice a thread loads its
+// rows row0 and row0 + 8 (the m16n8k8 rows of its warp), waits for its
+// previous wgmma group (which still reads the fragment registers), splits
+// the rows into them and issues 12 wgmma: per k8 step hi x B_hi, hi x B_lo,
+// lo x B_hi. While one warpgroup loads and splits, the other warpgroups'
+// groups keep the tensor cores busy; three warpgroups (192 rows) take a
+// quarter fewer bytes from L2 per product than two. ptxas notes (C7515)
+// that it serializes some of these wgmma; on the H100, waiting for each
+// group right after its commit clears the note and runs 5-8% slower, and
+// two fragment sets alternating (no note) ran 2-4% slower than this.
+template <int NWG, int BN, int STAGES>
+__global__ void __launch_bounds__(NWG * 128, 1)
+conv3x3_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ wsplit,
+                      const float* __restrict__ bias, float* __restrict__ out,
+                      float* __restrict__ partial, Shape s, int splits) {
+  static_assert(STAGES >= 3, "loads run STAGES - 2 slices ahead of the wgmma groups in flight");
+  static_assert(BN == 8 || BN == 64 || BN == 128, "tile width");
+  constexpr bool NARROW = BN == 8;  // Cout < 64: weight rows past Cout are zero, their columns not stored
+  constexpr int THREADS = NWG * 128, BM = NWG * 64;
+  constexpr int A_BYTES = BM * A_ROW_BYTES, B_BYTES = BN * 128, STAGE_BYTES = A_BYTES + 2 * B_BYTES;
+  constexpr int ROW_STEP = THREADS / 8;  // A rows between one thread's chunks
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t ring = (hopper::smem_addr(smem_raw) + 1023u) & ~1023u;
+
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int cs = s.Cin / F32_SLICE, k_tiles = 9 * cs;
+  const int kt0 = (int)((long long)blockIdx.z * k_tiles / splits);
+  const int nk = (int)((long long)(blockIdx.z + 1) * k_tiles / splits) - kt0;
+  const size_t half = (size_t)s.Cout * s.K;  // lo's offset in the split weight
+
+  // This thread's share of every A slice: 16-byte chunk j of rows
+  // tid / 8 + i * ROW_STEP, i < 4 (BM * 8 chunks over THREADS threads).
+  const int j = tid & 7;
+  int pix[4], ph[4], pw[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + tid / 8 + i * ROW_STEP;
+    pix[i] = m < s.M ? m : -1;
+    pw[i] = m % s.W;
+    ph[i] = (m / s.W) % s.H;
+  }
+  auto load = [&](int stage, int kt) {
+    const uint32_t st = ring + stage * STAGE_BYTES;
+    const int tap = kt / cs;
+    const int c = (kt - tap * cs) * F32_SLICE + j * 4;
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool ok = pix[i] >= 0 && (unsigned)(ph[i] + dy) < (unsigned)s.H && (unsigned)(pw[i] + dx) < (unsigned)s.W;
+      const float* src = ok ? x + (size_t)(pix[i] + dy * s.W + dx) * s.Cin + c : x;
+      hopper::cp_async16(st + hopper::swizzle128(tid / 8 + i * ROW_STEP, j), src, ok);
+    }
+    // B: rows n0 .. n0 + BN - 1 of the split weight, K columns kt * 32 ..
+#pragma unroll
+    for (int q = tid; q < BN * 8; q += THREADS) {
+      const int r = q / 8, cc = q % 8;
+      const bool ok = !NARROW || n0 + r < s.Cout;
+      const float* src = ok ? wsplit + (size_t)(n0 + r) * s.K + kt * F32_SLICE + cc * 4 : wsplit;
+      const uint32_t dst = st + A_BYTES + hopper::swizzle128(r, cc);
+      hopper::cp_async16(dst, src, ok);
+      hopper::cp_async16(dst + B_BYTES, ok ? src + half : wsplit, ok);
+    }
+  };
+
+#pragma unroll
+  for (int p = 0; p < STAGES - 2; ++p) {
+    if (p < nk) load(p, kt0 + p);
+    hopper::cp_async_commit();
+  }
+  // The m16n8k8 rows of this thread (of the block's BM) and its column group.
+  const int row0 = wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2), t = lane & 3;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  uint32_t hi[4][4], lo[4][4];  // this slice's A fragments: register r of k8 step kk
+  for (int i = 0; i < nk; ++i) {
+    // Slice i has landed for this thread; the barrier makes it whole, and
+    // (each warpgroup having waited for its wgmma of slice i - 2 before it
+    // split slice i - 1) frees the buffer refilled below.
+    hopper::cp_async_wait<STAGES - 3>();
+    hopper::fence_proxy_async();
+    __syncthreads();
+    const uint32_t st = ring + (i % STAGES) * STAGE_BYTES;
+    float v[16];  // v[8 h + e]: channel 8 t + e of row row0 + 8 h
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float4 p = hopper::lds128(st + hopper::swizzle128(row0 + 8 * h, 2 * t + q));
+        v[8 * h + 4 * q] = p.x;
+        v[8 * h + 4 * q + 1] = p.y;
+        v[8 * h + 4 * q + 2] = p.z;
+        v[8 * h + 4 * q + 3] = p.w;
+      }
+    hopper::wgmma_wait<0>();  // slice i - 1's group has read the fragments
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {  // register r: row row0 + 8 (r & 1), channel 8 t + 2 kk + (r >> 1)
+        const float a = v[8 * (r & 1) + 2 * kk + (r >> 1)];
+        hi[kk][r] = hopper::to_tf32(a);
+        lo[kk][r] = hopper::to_tf32(a - __uint_as_float(hi[kk][r]));
+      }
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+    const uint32_t b_hi = st + A_BYTES, b_lo = b_hi + B_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hopper::wgmma_tf32_m64k8(acc, hi[kk], hopper::desc_sw128(b_lo + kk * 32, 16, 1024));
+      hopper::wgmma_tf32_m64k8(acc, lo[kk], hopper::desc_sw128(b_hi + kk * 32, 16, 1024));
+      hopper::wgmma_tf32_m64k8(acc, hi[kk], hopper::desc_sw128(b_hi + kk * 32, 16, 1024));
+    }
+    hopper::wgmma_commit();
+    hopper::fence_regs(acc);
+    const int next = i + STAGES - 2;
+    if (next < nk) load(next % STAGES, kt0 + next);
+    hopper::cp_async_commit();
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+
+  const int row = m0 + row0;
+  const int rows[2] = {row < s.M ? row : -1, row + 8 < s.M ? row + 8 : -1};
+  store_tile<BN, NARROW>(acc, rows, n0, s, bias, out, partial, splits);
+}
+
 struct Args {
   const void *x, *w, *bias;
   void *out, *partial;
 };
 
 // Split-K's second pass, after a split plan's kernel.
+template <typename T = bf16>
 void launch_reduce(const Args& a, const Shape& s, int splits, cudaStream_t stream) {
   if (splits == 1) return;
   const int mn = s.M * s.Cout;
-  conv3x3_splitk_reduce<<<(mn + 255) / 256, 256, 0, stream>>>(
-      static_cast<const float*>(a.partial), static_cast<const bf16*>(a.bias), static_cast<bf16*>(a.out), splits,
+  conv3x3_splitk_reduce<T><<<(mn + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(a.partial), static_cast<const T*>(a.bias), static_cast<T*>(a.out), splits,
       mn, s.Cout);
 }
 
@@ -757,12 +957,30 @@ cudaError_t launch_tma_narrow(const Args& a, const Shape& s, cudaStream_t stream
   return cudaGetLastError();
 }
 
+template <int NWG, int BN, int STAGES>
+cudaError_t launch_tf32x3(const Args& a, const Shape& s, int splits, cudaStream_t stream) {
+  auto kernel = conv3x3_tf32x3_kernel<NWG, BN, STAGES>;
+  static std::atomic<uint64_t> allowed{0};
+  const cudaError_t attr = hopper::allow_dynamic_smem(kernel, 232448, allowed);
+  if (attr != cudaSuccess) return attr;
+  if (splits < 1 || splits > 9 * s.Cin / F32_SLICE || (splits > 1 && a.partial == nullptr))
+    return cudaErrorInvalidValue;
+  const dim3 grid((s.M + NWG * 64 - 1) / (NWG * 64), (s.Cout + BN - 1) / BN, splits);
+  kernel<<<grid, NWG * 128, tf32x3_smem_bytes(NWG, BN, STAGES), stream>>>(
+      static_cast<const float*>(a.x), static_cast<const float*>(a.w), static_cast<const float*>(a.bias),
+      static_cast<float*>(a.out), static_cast<float*>(a.partial), s, splits);
+  launch_reduce<float>(a, s, splits, stream);
+  return cudaGetLastError();
+}
+
 template <int VARIANT, int NWG, int BN, int STAGES>
 cudaError_t launch_plan(const Args& a, const Shape& s, int splits, cudaStream_t stream) {
   if constexpr (VARIANT == 3)  // bm = NWG * 64 = 128 MW: MW m64 blocks per consumer warpgroup
     return launch_tma<NWG / 2, BN, STAGES>(a, s, splits, stream);
   else if constexpr (VARIANT == 4)
     return splits == 1 ? launch_tma_narrow<STAGES>(a, s, stream) : cudaErrorInvalidValue;
+  else if constexpr (VARIANT == 5)
+    return launch_tf32x3<NWG, BN, STAGES>(a, s, splits, stream);
   else
     return launch_wgmma<NWG, BN, STAGES, VARIANT == 2>(a, s, splits, stream);
 }
@@ -782,8 +1000,8 @@ void launch_generic(const Args& a, const Shape& s, int dtype, cudaStream_t strea
 }  // namespace
 
 // The instantiated plans, (variant, BM, BN, stages): variant 1 = wgmma,
-// 2 = narrow, 3 = tma, 4 = tma_narrow. ops/conv3x3.py:INSTANCES lists the
-// same.
+// 2 = narrow, 3 = tma, 4 = tma_narrow, 5 = tf32x3. ops/conv3x3.py:INSTANCES
+// lists the same.
 #define CONV3X3_INSTANCES(X) \
   X(1, 2, 128, 4)            \
   X(1, 1, 64, 4)             \
@@ -792,15 +1010,21 @@ void launch_generic(const Args& a, const Shape& s, int dtype, cudaStream_t strea
   X(3, 2, 128, 4)            \
   X(3, 2, 256, 4)            \
   X(3, 4, 128, 4)            \
-  X(4, 4, 8, 4)
+  X(4, 4, 8, 4)              \
+  X(5, 3, 128, 4)            \
+  X(5, 2, 128, 4)            \
+  X(5, 1, 64, 4)             \
+  X(5, 1, 8, 4)
 
-// x: (B, H, W, Cin) contiguous; w: (3, 3, Cin, Cout) contiguous; bias:
-// (Cout,) or null; out: (B, H, W, Cout); partial: f32 (splits, B*H*W, Cout)
-// when splits > 1, else unused. dtype: 0 = float32, 1 = bfloat16. variant:
-// 0 = generic (bm, bn, stages, splits ignored), 1 = wgmma, 2 = narrow, 3 =
-// tma, 4 = tma_narrow (bf16 only; Cin % 64 == 0; wgmma and tma also
-// Cout % bn == 0; tma_narrow unsplit). Returns the cudaError_t of the
-// launch (0 on success).
+// x: (B, H, W, Cin) contiguous; w: (3, 3, Cin, Cout) contiguous, or for
+// tf32x3 the split weight (2, Cout, 9 Cin) that conv3x3_tf32_split made;
+// bias: (Cout,) or null; out: (B, H, W, Cout); partial: f32 (splits, B*H*W,
+// Cout) when splits > 1, else unused. dtype: 0 = float32, 1 = bfloat16.
+// variant: 0 = generic (bm, bn, stages, splits ignored), 1 = wgmma, 2 =
+// narrow, 3 = tma, 4 = tma_narrow (bf16 only; Cin % 64 == 0; wgmma and tma
+// also Cout % bn == 0; tma_narrow unsplit), 5 = tf32x3 (f32 only; Cin % 32
+// == 0; Cout % bn == 0, or Cout < 64 with bn = 8). Returns the cudaError_t
+// of the launch (0 on success).
 extern "C" int conv3x3_nhwc(const void* x, const void* w, const void* bias, void* out, void* partial,
                             int B, int H, int W, int Cin, int Cout, int dtype, int variant, int bm,
                             int bn, int stages, int splits, int device, void* stream) {
@@ -822,11 +1046,28 @@ extern "C" int conv3x3_nhwc(const void* x, const void* w, const void* bias, void
     launch_generic(a, s, dtype, st);
     return (int)cudaGetLastError();
   }
-  if (dtype != 1 || Cin % SLICE != 0 || (variant % 2 == 1 && Cout % bn != 0)) return (int)cudaErrorInvalidValue;
+  if (variant == 5 ? dtype != 0 || Cin % F32_SLICE != 0 || (bn == 8 ? Cout >= 64 : Cout % bn != 0)
+                   : dtype != 1 || Cin % SLICE != 0 || (variant % 2 == 1 && Cout % bn != 0))
+    return (int)cudaErrorInvalidValue;
 #define CONV3X3_CASE(V, NWG, BN_, ST)                               \
   if (variant == V && bm == NWG * 64 && bn == BN_ && stages == ST) \
     return (int)launch_plan<V, NWG, BN_, ST>(a, s, splits, st);
   CONV3X3_INSTANCES(CONV3X3_CASE)
 #undef CONV3X3_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+// w: the float32 HWIO weight (3, 3, Cin, Cout), contiguous; split: (2, Cout,
+// 9 Cin) float32, filled with the tf32x3 kernel's operand (hi, then lo; see
+// conv3x3_tf32_split_weight). Cin % 32 == 0. Returns the cudaError_t of the
+// launch.
+extern "C" int conv3x3_tf32_split(const void* w, void* split, int Cin, int Cout, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaGetLastError();
+  if (Cin % F32_SLICE != 0) return (int)cudaErrorInvalidValue;
+  const int K = 9 * Cin;
+  conv3x3_tf32_split_weight<<<dim3(K / 32, (Cout + 31) / 32), dim3(32, 8), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(w), static_cast<float*>(split), K, Cout);
+  return (int)cudaGetLastError();
 }

@@ -16,17 +16,25 @@ Which kernel runs is a pure function of the shape, ``plan_conv3x3``:
   N tile and the weight resident in shared memory. "tma_narrow" (the large
   levels) brings one TMA box per channel slice and column offset, which
   serves three taps; "narrow" is the "wgmma" loop.
-- "generic": float32, any Cin that is not a multiple of 64 (the stem,
-  Cin = 6), and operands not aligned to 16 bytes: the first kernel of the
-  port (WMMA for bf16, CUDA cores for f32).
+- "tf32x3": float32, Cin % 32 == 0 and Cout % 64 == 0 (every trunk conv),
+  or Cout < 64 (the output convs, on an 8-wide N tile). The "wgmma" loop
+  over 32-channel slices on the tensor cores in TF32 with split operands
+  (hi + lo, three products), which keeps float32 accuracy.
+  It reads the weight K-major and split: ``tf32_split_weight`` makes that
+  copy with a kernel of its own, once per weight version where no gradient
+  is recorded (``_split_weight``), else on every call.
+- "generic": the other float32 calls (Cin = 6, other channel counts),
+  bf16 with any Cin that is not a multiple of 64 (the stem, Cin =
+  6), and operands not aligned to 16 bytes: the first kernel of the port
+  (WMMA for bf16, CUDA cores for f32).
 
 Where the output tiles would leave most of the 132 SMs idle (the deep
-levels), a "tma", "wgmma" or "narrow" plan splits the K walk over
+levels), a "tma", "wgmma", "narrow" or "tf32x3" plan splits the K walk over
 ``splits`` blocks per tile, which write f32 partials to a workspace that a
 second, deterministic pass sums.
 
 Every call counts as one ``conv3x3`` launch, whichever of these runs and
-whether or not the split-K pass follows.
+whether or not the split-K pass or the weight's split pass runs with it.
 
 The op. ``conv3x3`` calls the custom op ``torch.ops.diffsep.conv3x3``
 (``torch.library``): its CPU implementation is the plain version, its
@@ -49,7 +57,9 @@ checkpoints and makes this copy once per weight version, not per call.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import weakref
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -60,22 +70,29 @@ from . import _build
 
 Tensor = torch.Tensor
 
-__all__ = ["ConvPlan", "conv3x3", "conv3x3_plain", "plan_conv3x3"]
+__all__ = ["ConvPlan", "conv3x3", "conv3x3_plain", "plan_conv3x3", "tf32_round", "tf32_split_weight",
+           "tf32_split_weight_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_VARIANTS = {"generic": 0, "wgmma": 1, "narrow": 2, "tma": 3, "tma_narrow": 4}
+_VARIANTS = {"generic": 0, "wgmma": 1, "narrow": 2, "tma": 3, "tma_narrow": 4, "tf32x3": 5}
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+_SPLIT_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
 SMEM_LIMIT = 232_448  # dynamic shared memory one block may use (227 KB)
-SLICE = 64  # channels per K slice of the wgmma and narrow kernels
+SLICE = 64  # channels per K slice of the bf16 wgmma and narrow kernels
+F32_SLICE = 32  # channels per K slice of the tf32x3 kernel (128-byte rows, as SLICE bf16)
 # (variant, bm, bn, stages) instantiated in csrc/conv3x3.cu (CONV3X3_INSTANCES)
 INSTANCES = (
     ("wgmma", 128, 128, 4), ("wgmma", 64, 64, 4), ("narrow", 128, 8, 5), ("narrow", 64, 8, 5),
     ("tma", 128, 128, 4), ("tma", 128, 256, 4), ("tma", 256, 128, 4), ("tma_narrow", 256, 8, 4),
+    ("tf32x3", 192, 128, 4), ("tf32x3", 128, 128, 4), ("tf32x3", 64, 64, 4),
+    ("tf32x3", 64, 8, 4),
 )
 TMA_W = 16  # output columns of a "tma" patch; it has bm / TMA_W rows
 MIN_SLICES = 4  # K slices a split walks at the least, where it can
+PARTIAL_COST = 3e-4  # tf32x3: a split's partials per output element, in 128-row slices (_tf32x3_cost)
+NARROW_WAVES = 4  # tf32x3's 64 x 8 blocks that a split plan keeps per SM
 
 
 @dataclass(frozen=True)
@@ -97,8 +114,11 @@ class ConvPlan:
 
 
 def _smem_bytes(variant: str, bm: int, bn: int, stages: int, max_slices: int) -> int:
-    # mirrors wgmma_smem_bytes, tma_smem_bytes and tma_narrow_smem_bytes in
-    # csrc/conv3x3.cu; max_slices: the K slices of weight a narrow block holds
+    # mirrors wgmma_smem_bytes, tma_smem_bytes, tma_narrow_smem_bytes and
+    # tf32x3_smem_bytes in csrc/conv3x3.cu; max_slices: the K slices of
+    # weight a narrow block holds
+    if variant == "tf32x3":  # A, then B's hi and lo halves, per stage
+        return 1024 + stages * (bm + 2 * bn) * 128
     if variant == "tma_narrow":  # boxes of (bm / TMA_W + 2) x TMA_W pixels
         return 1024 + stages * (bm + 2 * TMA_W) * 128 + max_slices * 1024 + stages * 16
     ring = stages * bm * 128
@@ -111,8 +131,9 @@ def _make(variant: str, m: int, cout: int, k_tiles: int, bm: int, bn: int, stage
     tiles = -(-m // bm) * -(-cout // bn)
     # Split K where the tiles leave SMs idle: as many splits as keep the
     # blocks within one wave (two for the narrow kernel, whose blocks are
-    # short), each walking MIN_SLICES slices or more.
-    waves = 2 if variant == "narrow" else 1
+    # short, and for tf32x3's 64 x 64 tiles, two of which share an SM), each
+    # walking MIN_SLICES slices or more.
+    waves = 2 if variant == "narrow" or (variant, bm) == ("tf32x3", 64) else 1
     splits = max(1, min(waves * SMS // tiles, k_tiles // MIN_SLICES))
     smem = _smem_bytes(variant, bm, bn, stages, -(-k_tiles // splits))
     while smem > SMEM_LIMIT and splits < k_tiles:  # a narrow kernel's resident weight
@@ -142,6 +163,36 @@ def _tma_narrow(b: int, h: int, w: int, cout: int, k_tiles: int) -> ConvPlan:
     return ConvPlan("tma_narrow", 256, 8, 4, 1, grid, _smem_bytes("tma_narrow", 256, 8, 4, k_tiles))
 
 
+def _tf32x3(m: int, cout: int, k_tiles: int) -> ConvPlan:
+    if cout < 64:
+        # the output convs: 64 x 8 tiles, five of whose blocks share an SM;
+        # their slices are short, so K splits down to two slices a split
+        grid = (-(-m // 64), -(-cout // 8))
+        splits = max(1, min(NARROW_WAVES * SMS // (grid[0] * grid[1]), k_tiles // 2))
+        return ConvPlan("tf32x3", 64, 8, 4, splits, grid + (splits,), _smem_bytes("tf32x3", 64, 8, 4, 0))
+    if cout % 128 or m < 256:
+        return _make("tf32x3", m, cout, k_tiles, 64, 64, 4)
+    plans = []
+    for bm in (128, 192):
+        plan = _make("tf32x3", m, cout, k_tiles, bm, 128, 4)
+        plans.append(plan)
+        if plan.splits == 1 and k_tiles >= 2 * MIN_SLICES:
+            plans.append(dataclasses.replace(plan, splits=2, grid=plan.grid[:2] + (2,)))
+    return min(plans, key=lambda p: _tf32x3_cost(p, m, cout, k_tiles))
+
+
+def _tf32x3_cost(plan: ConvPlan, m: int, cout: int, k_tiles: int) -> float:
+    """A model of a "tf32x3" plan's time, in units of one 128-row block's K
+    slice: the waves of blocks (one block per SM) x the rows and slices
+    each block walks, 192-row blocks taking 10% less per row (a quarter
+    fewer bytes from L2), plus the split's f32 partials (PARTIAL_COST per
+    output element and split). Fitted to the timings of
+    scripts/torch_port_conv_plans.py --dtype float32."""
+    rows = plan.bm * (0.9 if plan.bm == 192 else 1.0)
+    partials = PARTIAL_COST * plan.splits * m * cout if plan.splits > 1 else 0.0
+    return -(-plan.blocks // SMS) * rows * -(-k_tiles // plan.splits) + partials
+
+
 @functools.lru_cache(maxsize=1024)  # a pure function of the shape, asked on every call
 def plan_conv3x3(b: int, h: int, w: int, cin: int, cout: int,
                  dtype: torch.dtype = torch.bfloat16) -> ConvPlan:
@@ -159,8 +210,21 @@ def plan_conv3x3(b: int, h: int, w: int, cin: int, cout: int,
     same terms (16 x 16 patches filling half the card, its weight fitting
     in shared memory), else to "narrow": 128 rows where they fill half the
     card, else 64. These rules follow per-shape timings of every instance
-    at several split counts (scripts/torch_port_conv_plans.py)."""
+    at several split counts (scripts/torch_port_conv_plans.py).
+
+    float32 with Cin % 32 == 0 and Cout % 64 == 0 goes to "tf32x3". Where
+    Cout % 128 == 0, from 256 output pixels up, it takes 128 x 128 or 192 x
+    128 tiles, split as above or, unsplit plans, also in two, whichever
+    ``_tf32x3_cost`` (waves x rows x slices, plus the partials) finds
+    cheapest; else 64 x 64 tiles (the deepest levels, split over two
+    waves; Cout % 128 == 64). Cout < 64 takes 64 x 8
+    tiles, split where they leave fewer than NARROW_WAVES blocks per SM.
+    Every other float32 call goes to "generic"."""
     m = b * h * w
+    if dtype == torch.float32:
+        if cin % F32_SLICE or (cout >= 64 and cout % 64):
+            return _generic(m, cout)
+        return _tf32x3(m, cout, 9 * cin // F32_SLICE)
     if dtype != torch.bfloat16 or cin % SLICE or (cout >= 64 and cout % 64):
         return _generic(m, cout)
     k_tiles = 9 * cin // SLICE
@@ -193,6 +257,66 @@ def conv3x3_plain(x: Tensor, weight: Tensor, bias: Optional[Tensor] = None) -> T
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def tf32_round(v: Tensor) -> Tensor:
+    """float32 -> tf32 as ``cvt.rna.tf32.f32`` rounds: to 10 mantissa bits,
+    ties away from zero, the 13 low bits zero (still stored as float32)."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split_weight_plain(weight: Tensor) -> Tensor:
+    """Plain version of ``tf32_split_weight``: the float32 HWIO weight (3, 3,
+    Cin, Cout) as the "tf32x3" kernel reads it, (2, Cout, 9 Cin): hi =
+    tf32(w), then lo = tf32(w - hi), K-major, where column 8 kk + c of each
+    32-channel slice holds channel 8 (c % 4) + 2 kk + c // 4 of the slice
+    (the channels a thread's tf32 register fragments take; see
+    csrc/conv3x3.cu)."""
+    cin, cout = weight.shape[2], weight.shape[3]
+    col = torch.arange(F32_SLICE, device=weight.device)
+    src = 8 * (col % 8 % 4) + 2 * (col // 8) + col % 8 // 4
+    wt = weight.reshape(9 * cin // F32_SLICE, F32_SLICE, cout)[:, src].permute(2, 0, 1).reshape(cout, 9 * cin)
+    hi = tf32_round(wt)
+    return torch.stack([hi, tf32_round(wt - hi)])
+
+
+def tf32_split_weight(weight: Tensor) -> Tensor:
+    """The split weight of ``tf32_split_weight_plain``, made on the card by
+    the kernel conv3x3_tf32_split_weight (csrc/conv3x3.cu) for a CUDA
+    tensor; the plain version for a CPU one. Part of a conv3x3 call: it
+    counts no launch of its own."""
+    if weight.device.type == "cpu":
+        return tf32_split_weight_plain(weight)
+    cin, cout = weight.shape[2], weight.shape[3]
+    if weight.dtype != torch.float32 or not weight.is_contiguous() or cin % F32_SLICE:
+        raise ValueError(f"tf32_split_weight: weight {tuple(weight.shape)} {weight.dtype}")
+    split = torch.empty((2, cout, 9 * cin), dtype=torch.float32, device=weight.device)
+    fn = _build.entry("conv3x3", "conv3x3_tf32_split", _SPLIT_ARGTYPES)
+    err = fn(weight.data_ptr(), split.data_ptr(), cin, cout, weight.device.index,
+             torch.cuda.current_stream(weight.device).cuda_stream)
+    _build.check(err, "conv3x3_tf32_split")
+    return split
+
+
+# id(weight) -> (a weak reference to it, its version, its split weight)
+_split_cache: dict = {}
+
+
+def _split_weight(weight: Tensor) -> Tensor:
+    """``tf32_split_weight(weight)``, kept per weight tensor and version
+    where no gradient is recorded (serving: ``models.layers.Conv`` keeps its
+    HWIO copy per weight version, so each is split once); in grad mode, made
+    on every call, as the HWIO copy is."""
+    key = id(weight)
+    hit = _split_cache.get(key)
+    if hit is not None and hit[0]() is weight and hit[1] == weight._version:
+        return hit[2]
+    split = tf32_split_weight(weight)
+    if not torch.is_grad_enabled():
+        ref = weakref.ref(weight, lambda _, key=key: _split_cache.pop(key, None))
+        _split_cache[key] = (ref, weight._version, split)
+    return split
+
+
 def _check(x: Tensor, weight: Tensor, bias: Optional[Tensor]) -> None:
     if x.ndim != 4 or weight.shape[:3] != (3, 3, x.shape[-1]) or weight.ndim != 4:
         raise ValueError(f"conv3x3: x {tuple(x.shape)} and weight {tuple(weight.shape)}")
@@ -217,9 +341,10 @@ def _launch(x: Tensor, weight: Tensor, bias: Optional[Tensor], plan: ConvPlan) -
     partial = None
     if plan.splits > 1:
         partial = torch.empty((plan.splits, b * h * w, cout), dtype=torch.float32, device=x.device)
+    operand = _split_weight(weight) if plan.variant == "tf32x3" else weight
     fn = _build.entry("conv3x3", "conv3x3_nhwc", _ARGTYPES)
     err = fn(
-        x.data_ptr(), weight.data_ptr(), bias.data_ptr() if bias is not None else None,
+        x.data_ptr(), operand.data_ptr(), bias.data_ptr() if bias is not None else None,
         out.data_ptr(), partial.data_ptr() if partial is not None else None,
         b, h, w, cin, cout, _DTYPES[x.dtype], _VARIANTS[plan.variant], plan.bm, plan.bn,
         plan.stages, plan.splits, x.device.index, torch.cuda.current_stream(x.device).cuda_stream,

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Times the bf16 conv3x3 kernels of the PyTorch port (diffsep_tpu_torch)
-under every instantiated plan, at each conv shape of one flagship score
-evaluation, on one GPU.
+"""Times the conv3x3 kernels of the PyTorch port (diffsep_tpu_torch) under
+every instantiated plan, at each conv shape of one flagship score
+evaluation, on one GPU, in bf16 or in float32.
 
-    python3 scripts/torch_port_conv_plans.py [--report PATH]
+    python3 scripts/torch_port_conv_plans.py [--dtype float32] [--report PATH]
 
 The shapes come from one flagship score evaluation (chip_smoke.SERVE_BATCH
 mixtures of chip_smoke.SERVE_SECONDS s), as in chip_smoke.py. For each shape
@@ -15,6 +15,15 @@ and with half and twice that.
 Each line is a device time per call (chip_smoke.time_ms) and the host's
 time to enqueue one call; the planner's choice is marked `*`, the fastest
 `+`.
+
+With --dtype float32 the shapes are those that take the "tf32x3" plan
+(Cin % 32 == 0, Cout % 64 == 0), the flagship's and the 768-channel cat
+inputs of the NCSN++ options, at batch 2 and at the f32 fallback recipe's
+batch 6. Each runs the generic kernel, every "tf32x3" instance at the
+planner's split count, half and twice that (and unsplit), and cuDNN in
+float32 (TF32 off) twice: with torch.backends.cudnn.benchmark off (the
+default heuristic's algorithm) and on (the fastest of cuDNN's algorithms,
+chosen by its own timing on the first call).
 """
 from __future__ import annotations
 
@@ -34,17 +43,29 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import FS, SERVE_BATCH, SERVE_SECONDS, sleep_cycles_per_ms, time_ms  # noqa: E402
 
 
-def candidates(conv, shape, cout):
+F32_EXTRA = [((2, 16, 20, 768), 256), ((2, 32, 40, 768), 256)]  # set C's cat inputs
+
+
+def candidates(conv, shape, cout, dtype=None):
     """Every instantiated plan of the planner's variant and its sibling
-    ("tma" and "wgmma", "tma_narrow" and "narrow") for this shape."""
+    ("tma" and "wgmma", "tma_narrow" and "narrow") for this shape; for
+    float32, every "tf32x3" instance and the generic kernel."""
+    import torch
+
+    dtype = dtype or torch.bfloat16
     b, h, w, cin = shape
-    m, k_tiles = b * h * w, 9 * cin // conv.SLICE
-    chosen = conv.plan_conv3x3(b, h, w, cin, cout)
-    siblings = [{"tma", "wgmma"}, {"tma_narrow", "narrow"}]
+    slice_ = conv.F32_SLICE if dtype == torch.float32 else conv.SLICE
+    m, k_tiles = b * h * w, 9 * cin // slice_
+    chosen = conv.plan_conv3x3(b, h, w, cin, cout, dtype)
+    siblings = [{"tma", "wgmma"}, {"tma_narrow", "narrow"}, {"tf32x3"}]
     variants = next((v for v in siblings if chosen.variant in v), set())  # none for generic
     plans = {chosen}
+    if chosen.variant == "tf32x3":
+        plans.add(conv._generic(m, cout))
     for variant, bm, bn, stages in conv.INSTANCES:
-        if variant not in variants or ("narrow" not in variant and cout % bn):
+        if variant not in variants or ("narrow" not in variant and variant != "tf32x3" and cout % bn):
+            continue
+        if variant == "tf32x3" and (bn == 8) != (cout < 64) or cout >= 64 and cout % bn:
             continue
         if variant == "tma":
             plans.add(conv._tma(b, h, w, cout, k_tiles, bm, bn))
@@ -55,7 +76,7 @@ def candidates(conv, shape, cout):
                 plans.add(plan)
             continue
         base = conv._make(variant, m, cout, k_tiles, bm, bn, stages).splits
-        for splits in {base, max(1, base // 2), min(k_tiles, 2 * base)}:
+        for splits in {base, max(1, base // 2), min(k_tiles, 2 * base)} | ({1} if variant == "tf32x3" else set()):
             grid = (-(-m // bm), -(-cout // bn), splits)
             smem = conv._smem_bytes(variant, bm, bn, stages, -(-k_tiles // splits))
             if smem <= conv.SMEM_LIMIT:
@@ -82,6 +103,7 @@ def host_us(fn, cycles_per_ms, calls=50):
 
 def main() -> int:
     import torch
+    import torch.nn.functional as F
 
     from diffsep_tpu_torch.model import DiffSepModel
     from diffsep_tpu_torch.ops import _build
@@ -89,6 +111,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--report", type=Path, default=None, help="write every timing to this JSON file")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_conv_plans: no CUDA device", file=sys.stderr)
@@ -108,27 +131,45 @@ def main() -> int:
     with torch.no_grad():
         model.score_fn(xt, torch.full((SERVE_BATCH,), 0.5, device=dev), mix)
     shapes = sorted({(s, c) for (k, s, c) in _build.launch_shapes if k == "conv3x3"})
+    dtype = getattr(torch, args.dtype)
+    if dtype == torch.float32:
+        shapes = sorted({((bb, *s[1:]), c) for s, c in shapes + F32_EXTRA for bb in (SERVE_BATCH, 6)})
+    torch.backends.cudnn.allow_tf32 = False
     cycles_per_ms = sleep_cycles_per_ms()
     rows = []
     for shape, cout in shapes:
-        chosen, plans = candidates(conv, shape, cout)
+        chosen, plans = candidates(conv, shape, cout, dtype)
         if chosen.variant == "generic":
             continue
         g = torch.Generator(device=dev).manual_seed(0)
-        x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-        wt = (torch.randn((3, 3, shape[3], cout), generator=g, device=dev) / (9 * shape[3]) ** 0.5).to(torch.bfloat16)
-        bias = torch.randn((cout,), generator=g, device=dev).to(torch.bfloat16)
-        times = {p: time_ms(lambda p=p: conv._launch(x, wt, bias, p), cycles_per_ms) for p in plans}
-        host = {p: host_us(lambda p=p: conv._launch(x, wt, bias, p), cycles_per_ms) for p in plans}
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        wt = (torch.randn((3, 3, shape[3], cout), generator=g, device=dev) / (9 * shape[3]) ** 0.5).to(dtype)
+        bias = torch.randn((cout,), generator=g, device=dev).to(dtype)
+        with torch.no_grad():  # the tf32x3 plans' split weight is made once, as when serving
+            want = conv.conv3x3_plain(x, wt, bias).float()
+            scale = max(1.0, want.abs().max().item())
+            errs = {p: (conv._launch(x, wt, bias, p).float() - want).abs().max().item() / scale for p in plans}
+            times = {p: time_ms(lambda p=p: conv._launch(x, wt, bias, p), cycles_per_ms) for p in plans}
+            host = {p: host_us(lambda p=p: conv._launch(x, wt, bias, p), cycles_per_ms) for p in plans}
         best = min(times, key=times.get)
         for p in plans:
             mark = ("*" if p == chosen else " ") + ("+" if p == best else " ")
             print(f"{mark} {'x'.join(map(str, shape))}->{cout} {p.variant} {p.bm}x{p.bn} "
                   f"stages {p.stages} S {p.splits:3d} blocks {p.blocks:5d}: {times[p]:.4f} ms, "
-                  f"host {host[p]:.1f} us", flush=True)
-            rows.append(dict(shape=list(shape), cout=cout, variant=p.variant, bm=p.bm, bn=p.bn,
-                             stages=p.stages, splits=p.splits, ms=times[p], host_us=host[p],
+                  f"host {host[p]:.1f} us, err {errs[p]:.3g} of scale", flush=True)
+            rows.append(dict(shape=list(shape), cout=cout, dtype=args.dtype, variant=p.variant, bm=p.bm, bn=p.bn,
+                             stages=p.stages, splits=p.splits, ms=times[p], host_us=host[p], rel_err=errs[p],
                              chosen=p == chosen))
+        if dtype == torch.float32:
+            x_lib = x.permute(0, 3, 1, 2)
+            w_lib = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            for tuned in (False, True):
+                torch.backends.cudnn.benchmark = tuned
+                ms = time_ms(lambda: F.conv2d(x_lib, w_lib, bias, padding=1), cycles_per_ms)
+                label = "cudnn f32 benchmark" if tuned else "cudnn f32 heuristic"
+                print(f"   {'x'.join(map(str, shape))}->{cout} {label}: {ms:.4f} ms", flush=True)
+                rows.append(dict(shape=list(shape), cout=cout, dtype=args.dtype, variant=label, ms=ms))
+            torch.backends.cudnn.benchmark = False
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(dict(card=card, rows=rows), indent=1))

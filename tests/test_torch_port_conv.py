@@ -88,11 +88,14 @@ def test_conv3x3_plan_at_flagship_shapes(shape, cout):
     wave or more, or nothing left to split. The levels from 32 x 40 up go
     to the "tma" kernels, whose patches cover at most a quarter more pixels
     than the images have. Cin = 6 (the stem) goes to the generic kernel;
-    float32 always does."""
+    float32 takes the "tf32x3" plan where Cin % 32 == 0 and Cout % 64 == 0
+    or Cout < 64 (tests/test_torch_port_conv_f32.py), else the generic
+    kernel."""
     b, h, w, cin = shape
     plan = conv_mod.plan_conv3x3(b, h, w, cin, cout, torch.bfloat16)
     m = b * h * w
-    assert conv_mod.plan_conv3x3(b, h, w, cin, cout, torch.float32).variant == "generic"
+    f32 = "tf32x3" if cin % 32 == 0 and (cout < 64 or cout % 64 == 0) else "generic"
+    assert conv_mod.plan_conv3x3(b, h, w, cin, cout, torch.float32).variant == f32
     if cin == 6:
         assert plan.variant == "generic" and plan.splits == 1
         return

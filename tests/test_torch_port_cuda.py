@@ -8,7 +8,10 @@ they run on a machine with the card and without JAX:
 
 Tolerances, of max(1, |plain|): float32 kernels accumulate in float32 like
 the plain versions (cuDNN with TF32 off), so they agree to 1e-4 (measured
-<= 1.6e-5 for the conv's 9 * Cin terms, <= 5e-7 for the FIR). bfloat16
+<= 1.6e-5 for the generic conv's 9 * Cin terms, <= 5e-7 for the FIR; the
+"tf32x3" conv's three TF32 products per term lose under 2^-21 of each,
+and its f32 accumulation on the tensor cores reads up to 3.8e-5 at 9 x 768
+terms unsplit). bfloat16
 outputs are each rounded once from an f32 sum on both sides; they differ
 by at most about one bf16 step, held to 1e-2.
 """
@@ -99,6 +102,73 @@ def test_conv3x3_unaligned_input_takes_the_generic_kernel(dev):
     shifted.copy_(x)
     assert shifted.data_ptr() % 16 and conv3x3.plan_conv3x3(*x.shape, 128).variant != "generic"
     _close(conv3x3.conv3x3(shifted, k, bias), conv3x3.conv3x3_plain(x, k, bias), torch.bfloat16)
+
+
+# float32's "tf32x3" plan (split-operand TF32 on the tensor cores) at every
+# f32 trunk conv that chip_smoke.py's kernel phase (batch 2) and phase 12
+# (the f32 fallback recipe at batch 6, option set C's 768-channel cat
+# inputs) reach, and ragged ones: M not a multiple of the 128-row tile
+# (2 x 33 x 41), odd H and W with Cin = 160 (5 slices a tap) and Cin = 32
+# (one), Cout = 192 on 64 x 64 tiles (7 x 9, and 131 x 129 unsplit).
+# The output convs (Cout = 6) take its 8-wide tile: the flagship's at
+# batch 2 and 6, Cout = 20 over three N tiles, and past the bottom and
+# right edges (130 x 131).
+F32_TRUNK = [(2, 256, 320, 128, 128), (2, 256, 320, 256, 128), (2, 128, 160, 128, 128),
+             (2, 128, 160, 256, 128), (2, 128, 160, 256, 256), (2, 128, 160, 384, 128),
+             (2, 64, 80, 128, 128), (2, 64, 80, 128, 256), (2, 64, 80, 256, 256), (2, 64, 80, 384, 256),
+             (2, 64, 80, 512, 256), (2, 32, 40, 256, 256), (2, 32, 40, 512, 256), (2, 16, 20, 256, 256),
+             (2, 16, 20, 512, 256), (2, 8, 10, 256, 256), (2, 8, 10, 512, 256), (2, 4, 5, 256, 256),
+             (2, 4, 5, 512, 256), (2, 16, 20, 768, 256), (2, 32, 40, 768, 256)]
+F32_OUTPUT = [(2, 256, 320, 128, 6), (2, 128, 160, 128, 6), (2, 64, 80, 256, 6), (2, 32, 40, 256, 6),
+              (2, 16, 20, 256, 6), (2, 8, 10, 256, 6), (2, 4, 5, 256, 6)]
+F32_SHAPES = (F32_TRUNK + F32_OUTPUT + [(6, *s[1:]) for s in F32_TRUNK + F32_OUTPUT]
+              + [(2, 33, 41, 128, 128), (3, 17, 19, 160, 128), (1, 5, 7, 32, 64), (1, 7, 9, 64, 192),
+                 (1, 131, 129, 96, 192), (1, 9, 7, 64, 20), (1, 130, 131, 128, 6)])
+
+
+@pytest.mark.parametrize("shape", F32_SHAPES)
+def test_conv3x3_tf32x3_matches_plain(dev, shape):
+    """With and without bias; the split weight kept (no grad) and made per
+    call (grad mode)."""
+    x, k, bias = _conv_inputs(dev, torch.float32, shape)
+    assert conv3x3.plan_conv3x3(*shape, torch.float32).variant == "tf32x3"
+    n0 = _build.launch_counts["conv3x3"]
+    with torch.no_grad():
+        got = conv3x3.conv3x3(x, k, bias)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["conv3x3"] == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == (*x.shape[:3], k.shape[3])
+    _close(got, conv3x3.conv3x3_plain(x, k, bias), torch.float32)
+    _close(conv3x3.conv3x3(x, k), conv3x3.conv3x3_plain(x, k), torch.float32)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 5, 512, 256), (2, 16, 20, 768, 256), (2, 32, 40, 256, 256),
+                                   (6, 8, 10, 512, 256)])
+def test_conv3x3_f32_split_k_is_bitwise_deterministic(dev, shape):
+    x, k, bias = _conv_inputs(dev, torch.float32, shape)
+    plan = conv3x3.plan_conv3x3(*shape, torch.float32)
+    assert plan.variant == "tf32x3" and plan.splits > 1
+    first = conv3x3.conv3x3(x, k, bias)
+    second = conv3x3.conv3x3(x, k, bias)
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", [(3, 3, 32, 64), (3, 3, 128, 192), (3, 3, 768, 256), (3, 3, 64, 6)])
+def test_tf32_split_weight_kernel_equals_plain(dev, shape):
+    k = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    got = conv3x3.tf32_split_weight(k)
+    want = conv3x3.tf32_split_weight_plain(k)
+    assert got.shape == want.shape and torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_conv3x3_unaligned_f32_input_takes_the_generic_kernel(dev):
+    """A float32 input 4 bytes off the 16-byte alignment goes to the generic
+    kernel (CUDA cores) and still matches."""
+    x, k, bias = _conv_inputs(dev, torch.float32, (1, 16, 20, 128, 128))
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 and conv3x3.plan_conv3x3(*x.shape, 128, torch.float32).variant == "tf32x3"
+    _close(conv3x3.conv3x3(shifted, k, bias), conv3x3.conv3x3_plain(x, k, bias), torch.float32)
 
 
 def _fir_case(dev, dtype, shape, up, down_taps=TAPS_DOWN):
