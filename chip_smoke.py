@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (diffsep_tpu_torch) on one GPU (two
-data-parallel ranks share it in phase 10; they take two where there are).
+data-parallel ranks share it in phases 10 and 13; they take two where there
+are).
 
     python3 chip_smoke.py [--report PATH]
 
@@ -135,6 +136,28 @@ Phases, each of which fails the run on any error:
      blockwise attention (4416 tokens) against the naive one (LONG_TOL of
      scale), device ms and peak of each.
 
+ 13. this slice's paths: the recipe through cli.train.train on two ranks
+     (processes spawned here, gloo on the one card) with
+     trainer.strategy=ddp, then fsdp, FSDP_STEPS micro-steps of FSDP_BATCH
+     rows each on the same rows: every loss finite, losses and parameters
+     within FSDP_TOL of DDP's, launches per micro-step TRAIN_PER_STEP on
+     every rank, each rank's parameter, optimizer and EMA bytes and peak
+     beside DDP's, the last validation equal to the gathered one-process
+     model's (FSDP_TOL), the fsdp checkpoint separating a mixture in one
+     process; tensor-parallel separation (make_tp_separate, tp=2 over the
+     two ranks) of one 5 s mixture with ddim + none at TP_N against the
+     replicated separation of the same seed (TP_TOL of scale), launches per
+     rank exact, seconds per utterance of each; n_speakers=3 at full width,
+     one evaluation and a ddim separation, launches exact; every kernel
+     shape of these runs that no earlier phase held (the convs at Cout / 2,
+     the stem at Cin = 8, the output pyramid's convs at Cout = 8) against its plain
+     version in bf16, the tp and three-speaker ones timed; then
+     cli.evaluate --save-n on phase 8's run, cli.evaluate_covl on the saved
+     wavs (finite CSIG/CBAK/COVL), cli.merge_dnsmos with a DNSMOS CSV
+     written here, cli.export_model --torch on phase 6's run (read back bit
+     for bit) and --torch --avg-last-k 2 on the fsdp run (its two
+     checkpoints' mean, bit for bit).
+
 The last lines are the `{"kernels": [...]}` summary, then
 `{"ok": true, "device": {...}}`. With --report, every result (per shape,
 per dtype) is also written to PATH as JSON. It exits non-zero without a
@@ -211,7 +234,7 @@ DDP_SMALL = {"score_model": {"backbone_args": {"nf": 32, "ch_mult": (1, 1, 2, 2)
 PREEMPT_BATCH = 2
 PREEMPT_WIDTH = ["model.score_model.backbone_args.nf=32", "model.score_model.backbone_args.ch_mult=[1,1,2,2]",
                  "model.score_model.backbone_args.num_res_blocks=1"]
-EVAL_MP_FILES, EVAL_MP_BATCH = 8, 4
+EVAL_MP_FILES, EVAL_MP_BATCH = 4, 4
 # the DiffuSE recipe (phase 11): its published batch (the default
 # datamodule's 16 x 5 s) and micro-steps around the timing, test files,
 # concurrent HTTP requests, distill steps per stage, back-to-back
@@ -256,6 +279,17 @@ REMAT_TOL = 1e-6
 # attention level, past the 4096 threshold), blockwise against naive in
 # float32, of the score's scale
 LONG_SECONDS, LONG_TOL = 70, 1e-4
+# phase 13: the FSDP fit (micro-steps of FSDP_BATCH rows per rank on phase
+# 6's 12 files: two epochs, each with a validation and a checkpoint; its
+# validation samples at FSDP_VAL_N) against DDP on the same rows, held to
+# FSDP_TOL (losses relative, parameters of their norm, the validation
+# against the gathered model's relative); the ddim steps of the
+# tensor-parallel, three-speaker and FSDP-checkpoint separations, tp=2
+# against the replicated separation (of scale: bf16, the split convs take
+# other plans); the utterances cli.evaluate saves for evaluate_covl
+FSDP_STEPS, FSDP_BATCH, FSDP_VAL_N = 4, 3, 4
+FSDP_TOL = {"loss": 1e-3, "params": 1e-4, "validation": 1e-4}
+TP_N, TP_TOL, TOOLS_SAVE_N = 6, 1e-2, 2
 # device time by kernel name fragment (torch.profiler's kernel names)
 OPTION_GROUPS = (("hand conv3x3", ("conv3x3",)), ("hand FIR", ("fir2x",)),
                  ("cuDNN convs", ("dgrad", "wgrad", "cudnn", "xmma", "implicit_convolve", "conv2d")),
@@ -1950,10 +1984,15 @@ def card_vs_cpu(make, inputs, seed, dev):
     randomized (``randomize_``) and copied to the card; the same inputs
     through both, forward and the gradients of sum(out * w) for a seeded w.
     Returns (output error over its scale, gradient error over the norm,
-    scale, the card's module)."""
+    scale, the card's module). The CPU copy is built from ``seed`` too:
+    ``randomize_`` adds to a vector's initial value, and an RNN draws its
+    biases from the global generator, so without it every run checked
+    other weights."""
     import torch
 
-    cpu = make("cpu")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        cpu = make("cpu")
     randomize_(cpu, seed)
     gpu = make(dev)
     gpu.load_state_dict(cpu.state_dict())
@@ -2710,6 +2749,387 @@ def options_phase(dev, card, cycles_per_ms, tmp, data, checked):
     return out, collections.Counter(total)
 
 
+# --- phase 13: FSDP, tensor parallelism, three speakers, the tools ---------
+def _state_bytes(state):
+    """Bytes this rank holds of a train state: parameters, optimizer (Adam's
+    moments and the accumulator), EMA."""
+    opt = state.optimizer
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    return dict(params=nbytes(state.params), optimizer=nbytes([*opt.mu, *opt.nu, *(opt.acc or [])]),
+                ema=nbytes(state.ema.params))
+
+
+def fsdp_worker(rank, world, init_method, backend, card_index, base, exp_root, out_dir):
+    """One rank of phase 13's FSDP check (a process of its own): the recipe
+    through ``cli.train.train`` with trainer.strategy ddp, then fsdp, on the
+    same rows; per fit the launches per micro-step, the bytes this rank
+    holds and its peak; for fsdp, each validation's metrics and, on rank 0,
+    the last one again with the gathered one-process model. Writes
+    <strategy>_rank<r>.json and, on rank 0, <strategy>_params.pt (the whole
+    parameters after the fit)."""
+    import torch
+    import torch.distributed as dist
+
+    from diffsep_tpu_torch.cli import train as train_cli
+    from diffsep_tpu_torch.config import compose
+    from diffsep_tpu_torch.model import DiffSepModel
+    from diffsep_tpu_torch.ops import _build
+    from diffsep_tpu_torch.train import loop
+    from diffsep_tpu_torch.utils.distributed import initialize_distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", card_index)
+    initialize_distributed(backend=backend, device_type="cuda", rank=rank, world_size=world,
+                           init_method=init_method, device_index=card_index)
+    validate = loop.validate
+    try:
+        for strategy in ("ddp", "fsdp"):
+            per_step, held, vals = [], {}, []
+            counted = counting_train_step(per_step)
+
+            def make_step(self, seed, forward=None):
+                run = counted(self, seed, forward=forward)
+
+                def step(state, *args, **kwargs):
+                    held.setdefault("bytes", _state_bytes(state))
+                    return run(state, *args, **kwargs)
+
+                return step
+
+            def recorded_validate(model, datamodule, state, val_loss_fn, sep_seed):
+                out = validate(model, datamodule, state, val_loss_fn, sep_seed)
+                vals.append(out)
+                held.update(model=model, datamodule=datamodule, sep_seed=sep_seed)
+                return out
+
+            ov = [*base, f"trainer.strategy={strategy}", f"path.exp_root={exp_root}/{strategy}"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_counts()
+            with mock.patch.object(DiffSepModel, "make_train_step", make_step), \
+                    mock.patch.object(loop, "validate", recorded_validate):
+                state = train_cli.train(compose(ov), ov, str(dev))
+            torch.cuda.synchronize()
+            report = dict(rank=rank, strategy=strategy, step=state.step, bytes=held["bytes"], validations=vals,
+                          launches=dict(_build.launch_counts),
+                          shapes=[[k, list(shape), cout] for k, shape, cout in _build.launch_shapes],
+                          per_step=[dict(launches=s["launches"], backward=s["backward"], batch=s["batch"])
+                                    for s in per_step],
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            if rank == 0:
+                model = held["model"]  # the one-process model fit handed back
+                torch.save({k: v.detach().cpu() for k, v in zip(state.names, state.params)},
+                           Path(out_dir) / f"{strategy}_params.pt")
+                if strategy == "fsdp":
+                    # fit's validation loss draws from seed + 1
+                    val_loss = model.make_val_loss(int(compose(ov).get("seed", 0)) + 1)
+                    report["gathered_validation"] = validate(model, held["datamodule"], state, val_loss,
+                                                             held["sep_seed"])
+            Path(out_dir, f"{strategy}_rank{rank}.json").write_text(json.dumps(report))
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_worker(rank, world, init_method, backend, card_index, seed, out_dir, dp=1):
+    """One rank of phase 13's tensor-parallel check: the flagship (seeded,
+    the same weights on every rank) separates ``dp`` 5 s mixtures (one per
+    dp group) with ddim + none at TP_N, replicated on rank 0 alone, then
+    over a (dp, world / dp) layout (``make_tp_separate``) twice, the second
+    timed; writes the estimates, launches, kernel shapes, times and peak to
+    tp_rank<r>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from diffsep_tpu_torch.model import DiffSepModel
+    from diffsep_tpu_torch.ops import _build
+    from diffsep_tpu_torch.parallel import mesh
+    from diffsep_tpu_torch.parallel.tensor_parallel import make_tp_separate
+    from diffsep_tpu_torch.utils.distributed import initialize_distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", card_index)
+    initialize_distributed(backend=backend, device_type="cuda", rank=rank, world_size=world,
+                           init_method=init_method, device_index=card_index)
+    try:
+        kw = dict(predictor_name="ddim", corrector_name="none", N=TP_N)
+        model = DiffSepModel(device=dev, seed=0)
+        mix = torch.from_numpy(np.random.default_rng(seed).standard_normal((dp, 1, SERVE_SECONDS * FS))
+                               .astype(np.float32) * 0.1)
+        out = {}
+        if rank == 0:
+            for _ in range(2):  # the second timed
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if dp == 1:
+                    ref, _ = model.separate(mix, generator=torch.Generator(device=dev).manual_seed(seed), **kw)
+                else:  # the whole batch's draws, as make_tp_separate draws them
+                    from diffsep_tpu_torch.parallel.tensor_parallel import _draw_noise
+
+                    noise = _draw_noise(model, dp, mix.shape[-1], torch.Generator(device=dev).manual_seed(seed),
+                                        model._sampler_kwargs(kw))
+                    ref, _ = model.separate(mix, noise=noise, **kw)
+                torch.cuda.synchronize()
+                out["replicated_s"] = time.perf_counter() - t0
+            out["replicated"] = ref.cpu()
+        mesh.barrier()
+        run = make_tp_separate(model, dp=dp, tp=world // dp, **kw)
+        out["weight_bytes"] = sum(p.numel() * p.element_size() for p in model.score_model.parameters())
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(2):
+            mesh.barrier()
+            _build.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            est, nfe = run(torch.Generator(device=dev).manual_seed(seed), mix)
+            torch.cuda.synchronize()
+            out[f"tp_s_{i}"] = time.perf_counter() - t0
+        out.update(est=est.cpu(), nfe=nfe, launches=dict(_build.launch_counts),
+                   shapes=[[k, list(s), c, n] for (k, s, c), n in _build.launch_shapes.items()],
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        torch.save(out, Path(out_dir) / f"tp_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def slice12_phase(dev, card, cycles_per_ms, tmp, run_dir, data, checked):
+    """Phase 13: FSDP training, tensor-parallel separation, three speakers,
+    and the tools (evaluate_covl, merge_dnsmos, export_model --torch and
+    --avg-last-k); see the module docstring. ``run_dir`` and ``data`` are
+    phase 6's run dir and folder, ``checked`` the (kernel, shape, cout) keys
+    earlier phases held in bf16. Returns (report, launches over the phase's
+    main-path runs)."""
+    import torch
+
+    from diffsep_tpu_torch.cli import evaluate as eval_cli
+    from diffsep_tpu_torch.cli import evaluate_covl, export_model, merge_dnsmos
+    from diffsep_tpu_torch.cli.loading import load_model, read_checkpoint
+    from diffsep_tpu_torch.model import DiffSepModel
+    from diffsep_tpu_torch.ops import _build
+
+    out, total, new_shapes = {}, collections.Counter(), collections.Counter()
+    t_phase = time.perf_counter()
+    cards = [0, 1] if torch.cuda.device_count() >= 2 else [0, 0]
+    backend = "nccl" if len(set(cards)) == 2 else "gloo"
+    out["backend"], out["cards"] = backend, cards
+
+    # 1. FSDP against DDP: the recipe on 2 ranks, the same rows
+    base = ["experiment=icassp-separation", f"path.datasets.wsj0_mix={data}", f"trainer.max_steps={FSDP_STEPS}",
+            "trainer.check_val_every_n_epoch=1", f"datamodule.train.dl_opts.batch_size={FSDP_BATCH}",
+            "model.valid_max_sep_batches=1", f"model.sampler.N={FSDP_VAL_N}"]
+    log(f"[fsdp] 2 ranks on cards {cards} ({backend}): cli.train.train {' '.join(base)} with "
+        f"trainer.strategy=ddp, then fsdp")
+    rep_dir = Path(tmp) / "fsdp_reports"
+    rep_dir.mkdir()
+    init_method = f"tcp://127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    run_ranks(fsdp_worker, lambda r: (r, 2, init_method, backend, cards[r], base, f"{tmp}/exp_fsdp", str(rep_dir)),
+              2, 600)
+    out["fsdp_ranks_s"] = time.perf_counter() - t0
+    rep = {s: [json.loads((rep_dir / f"{s}_rank{r}.json").read_text()) for r in range(2)] for s in ("ddp", "fsdp")}
+    runs = {s: next(Path(tmp, "exp_fsdp", s).glob("*/*/train_log.jsonl")).parent for s in ("ddp", "fsdp")}
+    losses = {s: [r["train/score_loss"] for r in train_speed(runs[s], 1, FSDP_STEPS - 1, 2 * FSDP_BATCH)[1]]
+              for s in runs}
+    params = {s: torch.load(rep_dir / f"{s}_params.pt") for s in runs}
+    keys = sorted(params["ddp"])
+    param_err = rel_err([params["fsdp"][k] for k in keys], [params["ddp"][k] for k in keys])
+    loss_err = max(abs(f - d) / abs(d) for f, d in zip(losses["fsdp"], losses["ddp"]))
+    gathered, last = rep["fsdp"][0]["gathered_validation"], rep["fsdp"][0]["validations"][-1]
+    val_err = max(abs(gathered[k] - last[k]) / max(abs(last[k]), 1e-12) for k in last)
+    want = {k: sum(v) for k, v in TRAIN_PER_STEP.items()}
+    want_bwd = {k: v[1] for k, v in TRAIN_PER_STEP.items() if v[1]}
+    for s in rep:
+        for r in rep[s]:
+            total.update(r["launches"])
+            new_shapes.update({(k, tuple(shape), cout): 1 for k, shape, cout in r["shapes"]})
+    out["fsdp"] = dict(
+        losses=losses, loss_rel_err=loss_err, param_rel_err=param_err, tol=FSDP_TOL,
+        bytes_per_rank={s: [r["bytes"] for r in rep[s]] for s in rep},
+        peak_gib_per_rank={s: [r["peak_gib"] for r in rep[s]] for s in rep},
+        validations=rep["fsdp"][0]["validations"], gathered_validation=gathered, validation_rel_err=val_err,
+        per_rank_micro_step=rep["fsdp"][0]["per_step"][-1])
+    for s in ("ddp", "fsdp"):
+        b = [r["bytes"] for r in rep[s]]
+        log(f"[fsdp] {s}: losses {losses[s]}; per rank parameters {[x['params'] / 2**20 for x in b]} MiB, "
+            f"optimizer {[x['optimizer'] / 2**20 for x in b]} MiB, EMA {[x['ema'] / 2**20 for x in b]} MiB, "
+            f"peak {[round(r['peak_gib'], 3) for r in rep[s]]} GiB ({card})")
+    log(f"[fsdp] fsdp vs ddp on the same rows: losses {loss_err:.3g} relative (tol {FSDP_TOL['loss']:g}), "
+        f"parameters after {FSDP_STEPS} micro-steps {param_err:.3g} of their norm (tol {FSDP_TOL['params']:g}); "
+        f"validation {last} against the gathered one-process model's {gathered}: {val_err:.3g} relative")
+    for s in rep:
+        for r in rep[s]:
+            assert r["step"] == FSDP_STEPS and len(r["per_step"]) == FSDP_STEPS, (s, r["step"])
+            assert all(p["launches"] == want and p["backward"] == want_bwd and p["batch"][0] == FSDP_BATCH
+                       for p in r["per_step"]), (s, r["per_step"])
+    assert all(np.isfinite(losses[s]).all() for s in losses), losses
+    assert loss_err <= FSDP_TOL["loss"] and param_err <= FSDP_TOL["params"], (loss_err, param_err)
+    assert val_err <= FSDP_TOL["validation"], (last, gathered)
+    assert len(rep["fsdp"][0]["validations"]) == 2, rep["fsdp"][0]["validations"]  # one per epoch
+    assert all(rep["fsdp"][r]["bytes"]["optimizer"] < rep["ddp"][r]["bytes"]["optimizer"] for r in range(2))
+    # the FSDP checkpoint separates a mixture in one process
+    _build.reset_counts()
+    model = load_model(runs["fsdp"], device=dev)
+    mix1 = torch.from_numpy(np.random.default_rng(30).standard_normal((1, 1, SERVE_SECONDS * FS))
+                            .astype(np.float32) * 0.1)
+    est, nfe = model.separate(mix1, generator=torch.Generator(device=dev).manual_seed(0), predictor_name="ddim",
+                              corrector_name="none", N=TP_N)
+    torch.cuda.synchronize()
+    got = dict(_build.launch_counts)
+    total.update(got)
+    assert est.shape == (1, 2, SERVE_SECONDS * FS) and torch.isfinite(est).all() and got == launches_of(nfe), got
+    log(f"[fsdp] the fsdp run's checkpoint separates a {SERVE_SECONDS} s mixture in one process, ddim N={TP_N}, "
+        f"finite; launches {got}")
+    del model
+
+    # 2. tensor-parallel separation at tp=2 against the replicated one
+    log(f"[tp] flagship, one {SERVE_SECONDS} s mixture, ddim + none N={TP_N}: tp=2 over 2 ranks on cards {cards} "
+        f"({backend}) against the replicated separation of the same seed")
+    init_method = f"tcp://127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    run_ranks(tp_worker, lambda r: (r, 2, init_method, backend, cards[r], 31, str(rep_dir)), 2, 600)
+    out["tp_ranks_s"] = time.perf_counter() - t0
+    tps = [torch.load(rep_dir / f"tp_rank{r}.pt", weights_only=False) for r in range(2)]
+    ref = tps[0]["replicated"]
+    scale = ref.abs().max().item()
+    tp_err = max((t["est"] - ref).abs().max().item() for t in tps) / scale
+    tp_shapes = collections.Counter()
+    for t in tps:
+        total.update(t["launches"])
+        for k, shape, cout, cnt in t["shapes"]:
+            tp_shapes[(k, tuple(shape), cout)] += cnt
+    out["tp"] = dict(rel_err=tp_err, tol=TP_TOL, nfe=tps[0]["nfe"], replicated_s=tps[0]["replicated_s"],
+                     tp_s=[t["tp_s_1"] for t in tps], tp_first_s=[t["tp_s_0"] for t in tps],
+                     launches_per_rank=[t["launches"] for t in tps], peak_gib=[t["peak_gib"] for t in tps],
+                     weight_mib_per_rank=[t["weight_bytes"] / 2**20 for t in tps])
+    log(f"[tp] tp=2 vs replicated: {tp_err:.3g} of scale {scale:.3g} (tol {TP_TOL:g}); seconds per utterance "
+        f"replicated {tps[0]['replicated_s']:.3f}, tp=2 {[round(t['tp_s_1'], 3) for t in tps]} (first call "
+        f"{[round(t['tp_s_0'], 3) for t in tps]}); weights per rank {out['tp']['weight_mib_per_rank']} MiB; peak "
+        f"{[round(t['peak_gib'], 3) for t in tps]} GiB; launches per rank {tps[0]['launches']} ({card})")
+    assert tp_err <= TP_TOL and all(torch.isfinite(t["est"]).all() for t in tps), tp_err
+    assert all(t["launches"] == launches_of(t["nfe"]) for t in tps), [t["launches"] for t in tps]
+
+    # 3. three speakers at full width: one evaluation and a ddim separation
+    model3 = DiffSepModel({"n_speakers": 3}, device=dev, seed=0)
+    n = SERVE_SECONDS * FS
+    rng = np.random.default_rng(32)
+    mix3 = torch.from_numpy((0.1 * rng.standard_normal((SERVE_BATCH, 1, n))).astype(np.float32)).to(dev)
+    xt3 = torch.from_numpy((0.1 * rng.standard_normal((SERVE_BATCH, 3, n))).astype(np.float32)).to(dev)
+    _build.reset_counts()
+    with torch.no_grad():
+        score3 = model3.score_fn(xt3, torch.full((SERVE_BATCH,), 0.5, device=dev), mix3)
+    torch.cuda.synchronize()
+    eval3 = dict(_build.launch_counts)
+    spk_shapes = collections.Counter(_build.launch_shapes)
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    est3, nfe3 = model3.separate(mix3, generator=torch.Generator(device=dev).manual_seed(0), predictor_name="ddim",
+                                 corrector_name="none", N=TP_N)
+    torch.cuda.synchronize()
+    secs3 = time.perf_counter() - t0
+    sep3 = dict(_build.launch_counts)
+    total.update(eval3)
+    total.update(sep3)
+    out["three_speakers"] = dict(launches_per_eval=eval3, separate_launches=sep3, separate_s=secs3)
+    log(f"[3spk] n_speakers=3 flagship: one evaluation {eval3}; ddim N={TP_N} on {SERVE_BATCH} x {SERVE_SECONDS} s "
+        f"in {secs3:.2f} s, output {tuple(est3.shape)}, launches {sep3}")
+    assert score3.shape == (SERVE_BATCH, 3, n) and torch.isfinite(score3).all()
+    assert est3.shape == (SERVE_BATCH, 3, n) and torch.isfinite(est3).all()
+    assert eval3 == PER_EVAL and sep3 == launches_of(nfe3), (eval3, sep3)
+    # the stem takes 2 x 3 + 2 channels, and the output pyramid's convs give
+    # as many (6 and 6 at two speakers); the 1 x 1 output layer gives 6
+    assert any(k == "conv3x3" and s[-1] == 8 for k, s, _ in spk_shapes) and \
+        any(k == "conv3x3" and c == 8 for k, _, c in spk_shapes), sorted(spk_shapes, key=str)
+    del model3
+
+    # every new kernel shape of tp and three speakers, timed; of FSDP's, untimed
+    checks = []
+    for path, shapes_, timed in (("tp=2", tp_shapes, True), ("three speakers", spk_shapes, True),
+                                 ("fsdp", new_shapes, False)):
+        for i, key in enumerate(sorted(set(shapes_) - checked, key=str)):
+            k, shape, cout = key
+            r = check_kernel(k, shape, cout, "bfloat16", dev, 1300 + len(checks), cycles_per_ms if timed else None,
+                             timed=timed)
+            per_eval = {"tp=2": 2 * tps[0]["nfe"], "three speakers": 1}.get(path)
+            r.update(path=path, launches_per_eval=shapes_[key] // per_eval if per_eval else None)
+            checks.append(r)
+            checked.add(key)
+            timing = (f"ms {r['ms']:.4f} plain {r['plain_ms']:.4f} lib {r['library_ms']:.4f} bound "
+                      f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})" if timed else "untimed")
+            log(f"[slice12-kernel] {path}: {k} {shape}->{cout} bf16:{plan_text(r['plan'])} err "
+                f"{r['max_abs_err']:.3g} (tol {r['tol']:.3g}) {timing}")
+    out["kernel_checks"] = checks
+    bad = [r for r in checks if not r["ok"]]
+    assert not bad, f"kernel mismatches at phase 13's shapes: {bad}"
+    out["tp_kernel_ms_per_eval"] = {
+        k: sum(r["ms"] * r["launches_per_eval"] for r in checks if r["path"] == "tp=2" and r["kernel"] == k)
+        for k in PER_EVAL}
+    log(f"[tp] the hand kernels' time per evaluation on one rank at tp=2, over its shapes that no earlier phase "
+        f"ran: {out['tp_kernel_ms_per_eval']} ms")
+
+    # 4. the tools: cli.evaluate --save-n on phase 8's enhancement run, then
+    # cli.evaluate_covl on its wavs and cli.merge_dnsmos with a CSV
+    nr_run = next(Path(tmp, "exp_nr").glob("*/*/train_log.jsonl")).parent
+    eval_out = Path(tmp) / "eval_covl"
+    _build.reset_counts()
+    eval_cli.main([str(nr_run), "--enhance", "--test", "--save-n", str(TOOLS_SAVE_N), "-N", str(TP_N),
+                   "-o", str(eval_out)])
+    torch.cuda.synchronize()
+    (res_dir,) = eval_out.iterdir()
+    records = json.loads((res_dir / "test.json").read_text())
+    got = dict(_build.launch_counts)
+    total.update(got)
+    assert got == launches_of(sum(r["nfe"] for r in records)), got
+    wav_dir = res_dir / "wav" / "test"
+    evaluate_covl.main([str(wav_dir), str(wav_dir), "--sr", str(ENH_FS)])
+    covl = json.loads((res_dir / "test_covl.json").read_text())
+    covl_summary = json.loads((res_dir / "test_summary_covl.json").read_text())
+    assert len(covl) == TOOLS_SAVE_N and all(np.isfinite(v).all() for e in covl.values() for v in e.values()), covl
+    csv_rng = np.random.default_rng(33)
+    with open(res_dir / "test_dnsmos.csv", "w") as f:
+        f.write(",filename,len_in_sec,sr,num_hops,OVRL_raw,SIG_raw,BAK_raw,OVRL,SIG,BAK\n")
+        for i, r in enumerate(records):
+            vals = ",".join(f"{v:.3f}" for v in 2.0 + 2.0 * csv_rng.uniform(size=6))
+            f.write(f"{i},wav/test/{r['batch_idx']:04d}.enh0.wav,{r['len_s']},{ENH_FS},12,{vals}\n")
+    merge_dnsmos.main([str(res_dir)])
+    merged = json.loads((res_dir / "test_with_dnsmos.json").read_text())
+    merged_summary = json.loads((res_dir / "test_summary_with_dnsmos.json").read_text())
+    assert len(merged) == len(records) and all(np.isfinite(r["OVRL"]).all() for r in merged), merged[:1]
+    assert {"OVRL", "SIG", "BAK", "si_sdr"} <= set(merged_summary), merged_summary
+    out["tools"] = dict(covl_summary=covl_summary, dnsmos_summary=merged_summary, evaluate_launches=got)
+    log(f"[tools] cli.evaluate --enhance --test --save-n {TOOLS_SAVE_N} -N {TP_N}, then cli.evaluate_covl on its "
+        f"{len(covl)} saved pairs: {covl_summary}; cli.merge_dnsmos: {merged_summary}")
+
+    # cli.export_model --torch on phase 6's run; --avg-last-k 2 on the fsdp
+    # run, which has two checkpoints
+    ckpt = Path(tmp) / "phase6.ckpt"
+    export_model.main([str(run_dir), "-o", str(ckpt), "--torch"])
+    _, _, ema = read_checkpoint(Path(run_dir) / "checkpoints" / "latest.pt")
+    back = load_model(ckpt, device=dev).score_model.state_dict()
+    blob = torch.load(ckpt, map_location="cpu", weights_only=False)
+    assert all(torch.equal(back[k].cpu(), ema[k].cpu()) for k in ema) and back.keys() == ema.keys()
+    assert blob["hyper_parameters"]["config"]["model"]["score_model"]["_target_"] == \
+        "models.score_models.ScoreModelNCSNpp", blob["hyper_parameters"]["config"]["model"]["score_model"]
+    avg = Path(tmp) / "fsdp_avg2.ckpt"
+    export_model.main([str(runs["fsdp"]), "-o", str(avg), "--torch", "--avg-last-k", "2"])
+    emas = [read_checkpoint(p)[2] for p in sorted((runs["fsdp"] / "checkpoints").glob("[0-9]*.pt"))[-2:]]
+    mean = {k: ((emas[0][k].double() + emas[1][k].double()) / 2).float() for k in emas[0]}
+    back_avg = load_model(avg, device=dev).score_model.state_dict()
+    assert all(torch.equal(back_avg[k].cpu(), mean[k]) for k in mean)
+    out["export"] = dict(torch_ckpt_mb=ckpt.stat().st_size / 1e6, avg_ckpt_mb=avg.stat().st_size / 1e6)
+    log(f"[tools] cli.export_model RUN_DIR --torch: {out['export']['torch_ckpt_mb']:.1f} MB, read back by the "
+        f"port's loader bit for bit (the EMA weights); --torch --avg-last-k 2 on the fsdp run: the mean of its two "
+        f"checkpoints' EMA weights, bit for bit")
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = dict(total)
+    log(f"[slice12] phase 13 took {out['seconds']:.1f} s; launches {dict(total)}")
+    return out, dict(total)
+
+
 def ptxas_lines(text):
     """nvcc's -Xptxas -v report, one instantiation at a time: its kernel (the
     mangled template arguments shortened) beside its register and spill lines."""
@@ -2967,6 +3387,11 @@ def main() -> int:
         held |= {(r["kernel"], tuple(r["shape"]), r["cout"], r["dtype"])
                  for key in ("serve_entry_points", "enhance", "distill", "ddp") for r in report[key]["kernel_checks"]}
         report["options"], option_counts = options_phase(dev, card, cycles_per_ms, tmp, Path(tmp) / "wsj0_mix", held)
+        # 13. FSDP, tensor parallelism, three speakers and the tools
+        checked |= {(r["kernel"], tuple(r["shape"]), r["cout"]) for key in ("ddp", "options")
+                    for r in report[key]["kernel_checks"] if r["dtype"] == "bfloat16"}
+        report["slice12"], slice12_counts = slice12_phase(dev, card, cycles_per_ms, tmp, train["run_dir"],
+                                                          Path(tmp) / "wsj0_mix", checked)
 
     # summary per kernel: the bf16 (serving) times summed over one score
     # evaluation's launches at batch 2 (the same in float32 apart, with the
@@ -2988,6 +3413,7 @@ def main() -> int:
         dist_rows = [r for r in report["distill"]["kernel_checks"] if r["kernel"] == k]
         ddp_rows = [r for r in report["ddp"]["kernel_checks"] if r["kernel"] == k]
         option_rows = [r for r in report["options"]["kernel_checks"] if r["kernel"] == k]
+        slice12_rows = [r for r in report["slice12"]["kernel_checks"] if r["kernel"] == k]
         if k == "fir_up2x":  # the down's backward at odd sizes runs the up kernel
             enh_rows += report["enhance"]["odd_fir_backward"]
         enh_tr = [r for r in enh_rows if "launches_per_micro_step" in r]
@@ -3002,9 +3428,9 @@ def main() -> int:
         summary.append(dict(
             name=k, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=(serve_counts[k] + train["launches"][k] + entry_counts[k] + enh_counts[k] + dist_counts[k]
-                      + ddp_counts[k] + option_counts[k]),
+                      + ddp_counts[k] + option_counts[k] + slice12_counts[k]),
             max_abs_err=max(r["max_abs_err"] for r in rows + tr + entry_rows + enh_rows + dist_rows + ddp_rows
-                            + option_rows),
+                            + option_rows + slice12_rows),
             ms=per_eval_sum("ms"), plain_ms=per_eval_sum("plain_ms"),
             bound_ms=per_eval_sum("bound_ms"),
             bound_by="operations" if per_eval_sum("ops_ms") >= per_eval_sum("bytes_ms") else "bytes",
@@ -3015,7 +3441,14 @@ def main() -> int:
                               "distill and artifact": dist_counts[k],
                               "ddp ranks, allgpus, preemption, evaluate_mp": ddp_counts[k],
                               "diffuse (phase 11)": diffuse_counts[k],
-                              "NCSN++ options (phase 12)": option_counts[k]},
+                              "NCSN++ options (phase 12)": option_counts[k],
+                              "fsdp, tp=2, three speakers, tools (phase 13)": slice12_counts[k]},
+            launches_per_eval_tp2_per_rank=PER_EVAL[k], launches_per_eval_three_speakers=PER_EVAL[k],
+            tp2_ms_per_eval_new_shapes=report["slice12"]["tp_kernel_ms_per_eval"][k],
+            phase13_shapes=[dict(path=r["path"], shape=r["shape"], cout=r["cout"], plan=r["plan"],
+                                 max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                                 library_ms=r["library_ms"], bound_ms=r["bound_ms"],
+                                 launches_per_eval=r["launches_per_eval"]) for r in slice12_rows],
             launches_per_ddp_micro_step_per_rank={"forward": TRAIN_PER_STEP[k][0], "backward": TRAIN_PER_STEP[k][1]},
             launches_per_distill_step={"forward": 3 * PER_EVAL[k], "backward": TRAIN_PER_STEP[k][1]},
             launches_per_micro_step={"forward": TRAIN_PER_STEP[k][0], "backward": TRAIN_PER_STEP[k][1]},

@@ -26,27 +26,10 @@ import torch
 import yaml
 
 from ..model import DiffSepModel
-from ..models.convert import state_dicts_from_reference
+from ..models.convert import FROM_REFERENCE_TARGETS, state_dicts_from_reference
 from ..train.checkpoints import CheckpointManager
 
 log = logging.getLogger(__name__)
-
-# the reference's torch import paths -> the port's classes
-_REMAP = {
-    "models.score_models.ScoreModelNCSNpp": "diffsep_tpu_torch.models.ScoreModelNCSNpp",
-    "models.ncsnpp.NCSNpp": "diffsep_tpu_torch.models.NCSNpp",
-    "sdes.sdes.MixSDE": "diffsep_tpu_torch.sde.MixSDE",
-    "sdes.sdes.PriorMixSDE": "diffsep_tpu_torch.sde.PriorMixSDE",
-    "sdes.sdes.OUVESDE": "diffsep_tpu_torch.sde.OUVESDE",
-    "sdes.sdes.OUVPSDE": "diffsep_tpu_torch.sde.OUVPSDE",
-    "models.losses.SISDRLoss": "diffsep_tpu_torch.models.losses.SISDRLoss",
-    "models.losses.PESQ": "diffsep_tpu_torch.models.losses.PESQ",
-    "utils.FixedClipper": "diffsep_tpu_torch.train.clippers.FixedClipper",
-    "utils.AutoClipper": "diffsep_tpu_torch.train.clippers.AutoClipper",
-    "torch.optim.Adam": "adam",
-    "torch.nn.MSELoss": "mse",
-}
-
 
 def _config_from_hparams(hparams) -> Optional[Dict[str, Any]]:
     """The config of a run's ``hparams.yaml`` or a reference checkpoint's
@@ -58,7 +41,7 @@ def _config_from_hparams(hparams) -> Optional[Dict[str, Any]]:
         if isinstance(node, dict):
             out = {}
             for k, v in node.items():
-                out[k] = _REMAP.get(v, v) if k == "_target_" else walk(v)
+                out[k] = FROM_REFERENCE_TARGETS.get(v, v) if k == "_target_" else walk(v)
             return out
         if isinstance(node, (list, tuple)):
             return [walk(v) for v in node]

@@ -25,8 +25,10 @@ this process. Several train data-parallel, one process per device spawned
 here, each joined to a process group (NCCL; gloo on the CPU or where ranks
 share a card) and the score model in DDP (``parallel/mesh.py``): each rank
 takes ``batch_size`` rows of its own shard, so the global batch is
-devices x batch_size. Under torchrun the process joins torchrun's group
-instead and trains as its rank. A worker that fails fails the run: the
+devices x batch_size. ``trainer.strategy=fsdp`` shards the parameters,
+gradients, optimizer state and EMA over those ranks instead of
+replicating them (``train/loop.py``). Under torchrun the process joins
+torchrun's group instead and trains as its rank. A worker that fails fails the run: the
 others are stopped, and collectives time out.
 """
 from __future__ import annotations
@@ -183,8 +185,6 @@ def main(argv=None):
     accelerator = trainer_cfg.get("accelerator", "gpu")
     if accelerator not in DEVICES:
         raise ValueError(f"trainer.accelerator={accelerator!r}: expected one of {sorted(DEVICES)}")
-    if trainer_cfg.get("strategy") == "fsdp":
-        raise mesh.fsdp_unsupported()
 
     from ..utils.distributed import initialize_distributed, torchrun_env
 

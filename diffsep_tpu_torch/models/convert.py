@@ -15,7 +15,10 @@ plus a transpose per leaf:
 
 ``state_dicts_from_reference`` reads a reference Lightning checkpoint
 (``score_model.*`` keys in the port's own layout, and the EMA shadow list
-``ema.shadow_params``) into the port's state dict, raw and EMA.
+``ema.shadow_params``) into the port's state dict, raw and EMA;
+``save_reference_checkpoint`` writes one from the port's weights and config,
+its ``_target_`` paths mapped to the reference's (``TO_REFERENCE_TARGETS``,
+the inverse of ``FROM_REFERENCE_TARGETS``, which ``cli/loading.py`` reads).
 
 ``train_state_from_jax`` carries a whole JAX ``TrainState`` across: the
 parameters, the EMA shadow and its count, Adam's moments and count,
@@ -45,8 +48,9 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax", "state_dicts_from_reference", "train_state_from_jax",
-           "diffuse_state_dict_from_jax", "tcn_state_dict_from_jax", "dptnet_state_dict_from_jax"]
+__all__ = ["FROM_REFERENCE_TARGETS", "TO_REFERENCE_TARGETS", "state_dict_from_jax", "state_dicts_from_reference",
+           "save_reference_checkpoint", "to_reference_config", "train_state_from_jax", "diffuse_state_dict_from_jax",
+           "tcn_state_dict_from_jax", "dptnet_state_dict_from_jax"]
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
@@ -268,6 +272,57 @@ def state_dicts_from_reference(ckpt: Mapping[str, Any], prefix: str = "score_mod
     return raw, ema
 
 
+# the reference's torch import paths -> the port's classes
+FROM_REFERENCE_TARGETS = {
+    "models.score_models.ScoreModelNCSNpp": "diffsep_tpu_torch.models.ScoreModelNCSNpp",
+    "models.ncsnpp.NCSNpp": "diffsep_tpu_torch.models.NCSNpp",
+    "sdes.sdes.MixSDE": "diffsep_tpu_torch.sde.MixSDE",
+    "sdes.sdes.PriorMixSDE": "diffsep_tpu_torch.sde.PriorMixSDE",
+    "sdes.sdes.OUVESDE": "diffsep_tpu_torch.sde.OUVESDE",
+    "sdes.sdes.OUVPSDE": "diffsep_tpu_torch.sde.OUVPSDE",
+    "models.losses.SISDRLoss": "diffsep_tpu_torch.models.losses.SISDRLoss",
+    "models.losses.PESQ": "diffsep_tpu_torch.models.losses.PESQ",
+    "utils.FixedClipper": "diffsep_tpu_torch.train.clippers.FixedClipper",
+    "utils.AutoClipper": "diffsep_tpu_torch.train.clippers.AutoClipper",
+    "torch.optim.Adam": "adam",
+    "torch.nn.MSELoss": "mse",
+}
+# the port's config names -> the reference's, so that a checkpoint written
+# here instantiates under the reference's hydra config loading; a target
+# the reference has no class for (the datamodule's, DiffuSE's) is kept
+TO_REFERENCE_TARGETS = {port: ref for ref, port in FROM_REFERENCE_TARGETS.items()}
+
+
+def to_reference_config(node):
+    """A config tree (dicts and lists) with every ``_target_`` the
+    reference has mapped to its import path."""
+    if isinstance(node, Mapping):
+        return {k: TO_REFERENCE_TARGETS.get(v, v) if k == "_target_" else to_reference_config(v)
+                for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [to_reference_config(v) for v in node]
+    return node
+
+
+def save_reference_checkpoint(path, state_dict: Mapping[str, torch.Tensor], config=None) -> None:
+    """Write a reference Lightning checkpoint from the port's score-model
+    weights (pass the evaluation, EMA, weights: the reference falls back to
+    the raw ones where a checkpoint has no ``ema`` section): ``state_dict``
+    with ``score_model.*`` keys, ``global_step`` and ``epoch`` 0, and, where
+    ``config`` (the composed run config as plain dicts) is given,
+    ``hyper_parameters.config`` with the reference's ``_target_`` paths. The
+    JAX package's ``save_reference_checkpoint`` writes the same layout, and
+    ``cli/loading.py`` reads it back."""
+    ckpt: Dict[str, Any] = {
+        "state_dict": {"score_model." + k: v.detach().cpu().float().contiguous().clone()
+                       for k, v in state_dict.items()},
+        "global_step": 0, "epoch": 0,
+    }
+    if config is not None:
+        ckpt["hyper_parameters"] = {"config": to_reference_config(config)}
+    torch.save(ckpt, str(path))
+
+
 def _find_adam(node):
     """The ``ScaleByAdamState`` (count, mu, nu) inside an optax state."""
     if hasattr(node, "mu") and hasattr(node, "nu"):
@@ -282,8 +337,14 @@ def _find_adam(node):
 
 def train_state_from_jax(state, model):
     """A JAX ``TrainState`` (numpy or jax arrays) -> the port's TrainState
-    for ``model`` (a ``DiffSepModel``), whose parameters it loads."""
-    model.score_model.load_state_dict(state_dict_from_jax(state.params), strict=True)
+    for ``model`` (a ``DiffSepModel``), whose parameters it loads. Each tree
+    of parameter shape goes through the converter of the model's family:
+    ``diffuse_state_dict_from_jax`` for a DiffuSE score model,
+    ``state_dict_from_jax`` for NCSN++."""
+    from .score_model_diffuse import ScoreModelDiffuSE
+
+    convert = diffuse_state_dict_from_jax if isinstance(model.score_model, ScoreModelDiffuSE) else state_dict_from_jax
+    model.score_model.load_state_dict(convert(state.params), strict=True)
     ts = model.init_state()
     opt = state.opt_state
     multi = opt if hasattr(opt, "acc_grads") else None
@@ -295,12 +356,12 @@ def train_state_from_jax(state, model):
     ts.load_state_dict({
         "step": int(state.step),
         "optimizer": {
-            "mu": state_dict_from_jax(adam.mu), "nu": state_dict_from_jax(adam.nu), "count": int(adam.count),
-            "acc": state_dict_from_jax(multi.acc_grads) if multi is not None else None,
+            "mu": convert(adam.mu), "nu": convert(adam.nu), "count": int(adam.count),
+            "acc": convert(multi.acc_grads) if multi is not None else None,
             "mini_step": int(multi.mini_step) if multi is not None else 0,
             "gradient_step": int(multi.gradient_step) if multi is not None else 0,
         },
-        "ema": {"params": state_dict_from_jax(state.ema.params), "num_updates": int(state.ema.num_updates)},
+        "ema": {"params": convert(state.ema.params), "num_updates": int(state.ema.num_updates)},
         "clip": clip,
     })
     return ts

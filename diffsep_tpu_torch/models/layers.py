@@ -148,9 +148,14 @@ class Conv(nn.Module):
     ``F.conv2d`` on the CPU. Its weight goes in as a contiguous HWIO copy in
     the compute dtype. Without grad mode it is made once per weight version
     (a load or an optimizer step bumps it) and kept, not rebuilt on every
-    call; in grad mode, and inside ``weights_in_graph``, it is made on every
-    call, differentiably. The 1x1 case is a plain matrix product.
+    call; in grad mode, inside ``weights_in_graph``, and where
+    ``keep_weight_copy`` is off, it is made on every call, differentiably.
+    FSDP turns ``keep_weight_copy`` off (``parallel/mesh.shard_fsdp``): its
+    all-gather refills the parameter in place without bumping the version
+    the copy is keyed on. The 1x1 case is a plain matrix product.
     """
+
+    keep_weight_copy = True
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  init_scale: float = 1.0, bias: bool = True, stride: int = 1):
@@ -170,7 +175,7 @@ class Conv(nn.Module):
 
     def _kernel_weight(self, dt: torch.dtype) -> Tensor:
         w = self.weight
-        if _weights_in_graph or (torch.is_grad_enabled() and w.requires_grad):
+        if _weights_in_graph or not self.keep_weight_copy or (torch.is_grad_enabled() and w.requires_grad):
             # training: a differentiable copy, so that dW reaches the
             # float32 parameter
             return w.permute(2, 3, 1, 0).to(dt).contiguous()

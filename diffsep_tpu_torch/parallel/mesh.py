@@ -9,20 +9,27 @@ score model wrapped in ``DistributedDataParallel``, which averages the
 gradients over the ranks in every backward. Each rank takes ``batch_size``
 rows of its own loader shard, so the global batch is world x batch_size.
 
+``trainer.strategy: fsdp`` shards instead (``FsdpLayout``): each parameter
+of at least ``fsdp_min_size`` elements is split over the ranks on the axis
+the JAX package's ``fsdp_shardings`` picks, with FSDP2's ``fully_shard``
+(all-gathered for each forward, gradients reduce-scattered); its Adam
+moments, accumulator and EMA are split alike, and smaller parameters stay
+replicated, their gradients averaged here.
+
 Without a process group every helper here is the single-process identity:
 world size 1, rank 0, no wrap.
 """
 from __future__ import annotations
 
 import datetime
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 from torch import nn
 
-__all__ = ["all_reduce_mean", "any_rank", "barrier", "broadcast_object", "rank", "replicate_global",
-           "world_size", "wrap_ddp"]
+__all__ = ["FsdpLayout", "all_reduce_mean", "any_rank", "barrier", "broadcast_object", "fsdp_shard_dims",
+           "rank", "replicate_global", "shard_fsdp", "world_size", "wrap_ddp"]
 
 # how long a rank waits in a collective before it raises: a rank that died
 # fails the others instead of leaving them blocked
@@ -134,7 +141,130 @@ def wrap_ddp(module: nn.Module, device: Optional[torch.device] = None) -> nn.Mod
                                                static_graph=True)
 
 
-def fsdp_unsupported() -> NotImplementedError:
-    return NotImplementedError(
-        "trainer.strategy=fsdp (the JAX package's fsdp_shardings) is not ported to diffsep_tpu_torch "
-        "(ROADMAP.md, queue 1 item 8.1); use strategy: ddp")
+def fsdp_shard_dims(shapes: Sequence[Sequence[int]], n: int, min_size: int = 2 ** 16) -> List[Optional[int]]:
+    """The axis each parameter is split on over ``n`` ranks, or None where it
+    stays replicated: the rule of the JAX package's ``fsdp_shardings``. A
+    parameter of fewer than ``min_size`` elements (or 0-dim) is replicated;
+    a larger one is split on its largest axis that ``n`` divides (the first
+    of equal ones), replicated where none does."""
+    dims = []
+    for shape in shapes:
+        size = 1
+        for s in shape:
+            size *= int(s)
+        cands = [(d, int(s)) for d, s in enumerate(shape) if int(s) % n == 0]
+        if len(shape) == 0 or size < min_size or not cands:
+            dims.append(None)
+        else:
+            dims.append(max(cands, key=lambda c: c[1])[0])
+    return dims
+
+
+class FsdpLayout:
+    """Where each parameter of a train state lives under ``fully_shard``.
+
+    ``params`` are the module's parameters after sharding, in the train
+    state's order: DTensors split on ``dims[i]``, or plain replicated
+    tensors where ``dims[i]`` is None. ``local`` are what the optimizer, the
+    EMA and the clipper act on: each sharded parameter's local shard (a view
+    of the storage that FSDP all-gathers for every forward, so an update in
+    place reaches the next forward) and each replicated parameter itself.
+    """
+
+    def __init__(self, params: Sequence[nn.Parameter], dims: Sequence[Optional[int]]):
+        from torch.distributed.tensor import DTensor
+
+        self.params = list(params)
+        self.dims = list(dims)
+        self.world, self.rank = world_size(), rank()
+        for p, d in zip(self.params, self.dims):
+            if isinstance(p, DTensor) != (d is not None):
+                raise RuntimeError("FsdpLayout: a parameter's sharding differs from its planned axis")
+        with torch.no_grad():
+            self.local = [p.to_local() if d is not None else p for p, d in zip(self.params, self.dims)]
+
+    def shard(self, full: torch.Tensor, i: int) -> torch.Tensor:
+        """This rank's part of ``full``, the whole of parameter i's tensor
+        (a copy)."""
+        d = self.dims[i]
+        return full.detach().clone() if d is None else full.detach().chunk(self.world, d)[self.rank].clone()
+
+    def gather(self, local: torch.Tensor, i: int) -> torch.Tensor:
+        """The whole tensor of parameter i from every rank's ``local`` part
+        (every rank calls, in the same order)."""
+        d = self.dims[i]
+        if d is None:
+            return local.detach().clone()
+        moved = local.detach().movedim(d, 0).contiguous()
+        out = torch.empty((self.world * moved.shape[0], *moved.shape[1:]), dtype=moved.dtype,
+                          device=moved.device)
+        dist.all_gather_into_tensor(out, moved)
+        return out.movedim(0, d).contiguous()
+
+    def grads(self) -> List[torch.Tensor]:
+        """This rank's gradient of each ``local`` tensor: the sharded ones
+        reduce-scattered (mean over ranks) by FSDP in the backward, the
+        replicated ones averaged here in one all-reduce; zeros where a
+        parameter took none."""
+        out = []
+        for p, d, loc in zip(self.params, self.dims, self.local):
+            g = p.grad
+            if g is None:
+                out.append(torch.zeros_like(loc))
+            else:
+                out.append(g.to_local() if d is not None else g)
+        rep = [g for g, d in zip(out, self.dims) if d is None]
+        if rep and self.world > 1:
+            flat = all_reduce_mean(torch.cat([g.reshape(-1) for g in rep]))
+            for g, v in zip(rep, flat.split([g.numel() for g in rep])):
+                g.copy_(v.view_as(g))
+        return out
+
+    def global_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The L2 norm of the whole gradient, from every rank's ``grads``
+        (the replicated ones counted once), in float32."""
+        sq = torch._foreach_norm([g.float() for g in grads])
+        sharded = [n for n, d in zip(sq, self.dims) if d is not None]
+        replicated = [n for n, d in zip(sq, self.dims) if d is None]
+        total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+        if sharded:
+            total = torch.stack(sharded).square().sum()
+            if self.world > 1:
+                dist.all_reduce(total)
+        if replicated:
+            total = total + torch.stack(replicated).square().sum()
+        return total.sqrt()
+
+
+def shard_fsdp(module: nn.Module, names: Sequence[str], min_size: int = 2 ** 16) -> FsdpLayout:
+    """Shard ``module``'s parameters over the process group with FSDP2
+    (``fully_shard`` on the module: one all-gather per forward, gradients
+    reduce-scattered to their mean), split as ``fsdp_shard_dims`` says; the
+    others stay replicated (``ignored_params``). ``names`` orders the
+    layout's parameters (the train state's order). Every rank calls it with
+    equal parameters (``replicate_global`` first)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+
+    n = world_size()
+    by_name = dict(module.named_parameters())
+    dims = fsdp_shard_dims([tuple(by_name[k].shape) for k in names], n, min_size)
+    dim_of: Dict[int, Optional[int]] = {id(by_name[k]): d for k, d in zip(names, dims)}
+    device = by_name[names[0]].device
+    group_mesh = init_device_mesh(device.type, (n,))
+    # resharded after every forward, also the root's and one without grad:
+    # the state's updates (the optimizer, the EMA swapped in for validation)
+    # write the shards, so an unsharded copy kept past a forward would
+    # give the next forward stale weights
+    fully_shard(module, mesh=group_mesh, reshard_after_forward=True,
+                shard_placement_fn=lambda p: Shard(dim_of[id(p)]),
+                ignored_params={by_name[k] for k, d in zip(names, dims) if d is None})
+    # a copy of a weight kept between forwards (models/layers.Conv) is keyed
+    # on the parameter's storage and version, and the all-gather refills
+    # that storage without a new version: each forward makes its own
+    for m in module.modules():
+        if getattr(m, "keep_weight_copy", False):
+            m.keep_weight_copy = False
+    by_name = dict(module.named_parameters())
+    return FsdpLayout([by_name[k] for k in names], dims)

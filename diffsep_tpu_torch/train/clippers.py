@@ -1,9 +1,11 @@
 """Gradient clipping: fixed max-norm and AutoClip (percentile of history).
 
 Counterpart of ``diffsep_tpu/train/clippers.py``. A clipper is called as
-``clip(grads, state) -> (state, (grad_norm, threshold))`` and scales the
-list of gradients in place by min(1, threshold / grad_norm). Norms and
-thresholds are float32 tensors on the gradients' device, so a step never
+``clip(grads, state, norm=None) -> (state, (grad_norm, threshold))`` and
+scales the list of gradients in place by min(1, threshold / grad_norm);
+``norm`` is the gradient's norm where the caller has it (the whole
+gradient's, when ``grads`` are one rank's shards), else ``grad_norm(grads)``.
+Norms and thresholds are float32 tensors on the gradients' device, so a step never
 waits for the card. AutoClip keeps its history in a fixed ring buffer:
 the percentile is exact once the buffer is warm and over the filled prefix
 before that.
@@ -38,8 +40,9 @@ class FixedClipper:
     def init(self, device=None):
         return None
 
-    def __call__(self, grads: List[Tensor], state=None) -> Tuple[None, Tuple[Tensor, Tensor]]:
-        norm = grad_norm(grads)
+    def __call__(self, grads: List[Tensor], state=None,
+                 norm: Optional[Tensor] = None) -> Tuple[None, Tuple[Tensor, Tensor]]:
+        norm = grad_norm(grads) if norm is None else norm
         # a fill on the card, not a copy from host memory (which would wait
         # for the card)
         max_norm = torch.full((), self.max_norm, dtype=torch.float32, device=norm.device)
@@ -63,8 +66,8 @@ class AutoClipper:
     def init(self, device=None) -> AutoClipState:
         return AutoClipState(torch.zeros((self.capacity,), dtype=torch.float32, device=device), 0)
 
-    def __call__(self, grads: List[Tensor], state: AutoClipState):
-        norm = grad_norm(grads)
+    def __call__(self, grads: List[Tensor], state: AutoClipState, norm: Optional[Tensor] = None):
+        norm = grad_norm(grads) if norm is None else norm
         state.history[state.count % self.capacity] = norm
         state.count += 1
         n_valid = min(state.count, self.capacity)

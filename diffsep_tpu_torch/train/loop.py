@@ -34,8 +34,18 @@ barrier after each save. Every rank validates on the whole validation
 split, as the JAX package's processes do, and all take rank 0's metrics, so
 they agree on "best".
 
+``trainer.strategy: fsdp`` (the JAX package's ``fsdp_shardings``) shards
+the parameters of at least ``trainer.fsdp_min_size`` elements (default
+2**16), their gradients, Adam moments, accumulator and EMA over the ranks
+instead of replicating them (``mesh.shard_fsdp``, ``trainer.shard_state``).
+Batches are DDP's: each rank takes ``batch_size`` rows of its shard. Every
+rank runs each validation forward, since each gathers the parameters from
+all; the checkpoint holds the whole tensors, gathered by every rank and
+written by rank 0, as a DDP run's; and ``fit`` returns a one-process model
+and state, so ``test=true`` goes on as after DDP.
+
 Left out: ``pad_batch_for_tpu``, which exists for a TPU layout (a batch of
-6 runs as it is here), and ``trainer.strategy: fsdp`` (it raises).
+6 runs as it is here).
 """
 from __future__ import annotations
 
@@ -56,7 +66,7 @@ from ..parallel import mesh
 from ..utils.distributed import is_rank_zero
 from .checkpoints import CheckpointManager, load_payload
 from .ema import swapped
-from .trainer import step_generator
+from .trainer import TrainState, shard_state, step_generator
 
 log = logging.getLogger(__name__)
 
@@ -115,6 +125,31 @@ def restore(model, state, payload: dict) -> None:
     """Model parameters and train state from a checkpoint's payload."""
     model.score_model.load_state_dict(payload["model"], strict=True)
     state.load_state_dict(payload["train_state"])
+
+
+def whole_model_state(model, state: TrainState) -> dict:
+    """The score model's state dict with whole tensors: under fsdp every
+    sharded parameter gathered from the ranks (every rank calls)."""
+    sd = model.score_model.state_dict()
+    if state.fsdp is not None:
+        for i, name in enumerate(state.names):
+            sd[name] = state.fsdp.gather(state.fsdp.local[i], i)
+    return sd
+
+
+def unshard(model, state: TrainState) -> TrainState:
+    """After fsdp training: ``model`` holds a one-process score model with
+    the whole parameters again, and the returned state the whole optimizer
+    state and EMA, as after DDP (every rank calls)."""
+    from ..model import build_score_model
+
+    weights, payload = whole_model_state(model, state), state.state_dict()
+    score_model = build_score_model(model.config).to(model.device).eval()
+    score_model.load_state_dict(weights, strict=True)
+    model.score_model = score_model
+    whole = model.init_state()
+    whole.load_state_dict(payload)
+    return whole
 
 
 def _flush(records, workdir: Path, t_fit: float) -> None:
@@ -218,8 +253,6 @@ def fit(model, datamodule, workdir, config, seed: int = 0, max_epochs: Optional[
     mesh.barrier()
 
     cfg_trainer = config.get("trainer", {}) or {}
-    if cfg_trainer.get("strategy") == "fsdp":
-        raise mesh.fsdp_unsupported()
     if max_epochs is None:
         max_epochs = int(cfg_trainer.get("max_epochs", 1000))
     if max_steps is None and cfg_trainer.get("max_steps") is not None:
@@ -251,7 +284,15 @@ def fit(model, datamodule, workdir, config, seed: int = 0, max_epochs: Optional[
     mesh.replicate_global(state)
 
     device = model.device
-    train_step = model.make_train_step(seed, forward=mesh.wrap_ddp(model.score_model, device))
+    # any other strategy (ddp; the JAX package's dp_mesh) is data parallel,
+    # as in the JAX package
+    if cfg_trainer.get("strategy") == "fsdp" and mesh.world_size() > 1:
+        min_size = int(cfg_trainer.get("fsdp_min_size", 2 ** 16))
+        shard_state(state, mesh.shard_fsdp(model.score_model, state.names, min_size))
+        forward = model.score_model
+    else:
+        forward = mesh.wrap_ddp(model.score_model, device)
+    train_step = model.make_train_step(seed, forward=forward)
     val_loss_fn = model.make_val_loss(seed + 1)
     train_loader = datamodule.train_dataloader()
     step = state.step
@@ -259,9 +300,9 @@ def fit(model, datamodule, workdir, config, seed: int = 0, max_epochs: Optional[
     records = []  # (step, host start, metrics) not yet in train_log.jsonl
 
     def save(metrics):
+        payload = {"model": whole_model_state(model, state), "train_state": state.state_dict()}
         if rank_zero:
-            ckpt.save(step, {"model": model.score_model.state_dict(), "train_state": state.state_dict(),
-                             "config": to_dict(config)}, metrics)
+            ckpt.save(step, {**payload, "config": to_dict(config)}, metrics)
         mesh.barrier()
 
     preempt = _PreemptFlag() if preempt_save else None
@@ -305,6 +346,8 @@ def fit(model, datamodule, workdir, config, seed: int = 0, max_epochs: Optional[
             if stop:
                 break
     logger.close()
+    if state.fsdp is not None:
+        state = unshard(model, state)
     state.preempted = preempted
     return state
 

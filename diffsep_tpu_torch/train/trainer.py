@@ -25,6 +25,13 @@ model through its DDP wrapper, which averages the gradients over the ranks
 in every micro-step's backward. Steps 2-5 then act on the global gradient,
 as they do in the JAX package's dp step: the clip binds on the global norm,
 not on each rank's, and every rank applies the same update.
+
+Under ``trainer.strategy: fsdp`` (``shard_state``) the state holds this
+rank's shard of each large parameter, of its Adam moments, accumulator and
+EMA (``mesh.FsdpLayout``): steps 3-5 are elementwise and act on the shards
+as they are; the clip takes the norm of the whole gradient, summed over the
+shards (``FsdpLayout.global_norm``); ``state_dict`` gathers the whole
+tensors, so a checkpoint is laid out as a one-process or DDP run's.
 """
 from __future__ import annotations
 
@@ -175,15 +182,34 @@ class TrainState:
     clip_state: Optional[AutoClipState]
     # set by train.loop.fit when it stopped for a preemption signal (not saved)
     preempted: bool = False
+    # where the parameters live under trainer.strategy=fsdp (shard_state):
+    # then ``params`` and every per-parameter tensor here are this rank's
+    # shards
+    fsdp: Optional[mesh.FsdpLayout] = None
+
+    def _whole(self, tensors: Mapping[str, Tensor]) -> Dict[str, Tensor]:
+        """Per-parameter tensors as whole tensors (gathered under fsdp)."""
+        if self.fsdp is None:
+            return dict(tensors)
+        return {k: self.fsdp.gather(tensors[k], i) for i, k in enumerate(self.names)}
+
+    def grad_holders(self) -> List[nn.Parameter]:
+        """The parameters the backward writes gradients into."""
+        return self.fsdp.params if self.fsdp is not None else self.params
 
     def state_dict(self) -> dict:
+        """The whole state; under fsdp every rank must call (it gathers)."""
         clip = None
         if self.clip_state is not None:
             clip = {"history": self.clip_state.history, "count": self.clip_state.count}
-        return {"step": self.step, "optimizer": self.optimizer.state_dict(self.names),
-                "ema": self.ema.state_dict(self.names), "clip": clip}
+        opt, ema = self.optimizer.state_dict(self.names), self.ema.state_dict(self.names)
+        for d, k in ((opt, "mu"), (opt, "nu"), (opt, "acc"), (ema, "params")):
+            if d[k] is not None:
+                d[k] = self._whole(d[k])
+        return {"step": self.step, "optimizer": opt, "ema": ema, "clip": clip}
 
     def load_state_dict(self, state: Mapping) -> None:
+        """A whole state (before ``shard_state``)."""
         self.step = int(state["step"])
         self.optimizer.load_state_dict(state["optimizer"], self.names)
         self.ema.load_state_dict(state["ema"], self.names)
@@ -200,6 +226,22 @@ def init_train_state(score_model: nn.Module, cfg: OptimConfig) -> TrainState:
         step=0, names=list(names), params=list(params), optimizer=Optimizer(cfg, params),
         ema=EMA(params), clip_state=clipper.init(device) if clipper is not None else None,
     )
+
+
+@torch.no_grad()
+def shard_state(state: TrainState, layout: mesh.FsdpLayout) -> TrainState:
+    """Keep only this rank's part of every per-parameter tensor of
+    ``state`` (equal on every rank before), as ``layout`` splits the score
+    model's parameters (``mesh.shard_fsdp``). Returns ``state``."""
+    state.fsdp = layout
+    opt = state.optimizer
+    opt.mu = [layout.shard(t, i) for i, t in enumerate(opt.mu)]
+    opt.nu = [layout.shard(t, i) for i, t in enumerate(opt.nu)]
+    if opt.acc is not None:
+        opt.acc = [layout.shard(t, i) for i, t in enumerate(opt.acc)]
+    state.ema.params = [layout.shard(t, i) for i, t in enumerate(state.ema.params)]
+    state.params = list(layout.local)
+    return state
 
 
 def step_generator(seed: int, step: int, device, rank: int = 0) -> torch.Generator:
@@ -231,16 +273,22 @@ def apply_gradients(state: TrainState, clipper, ema_decay: float):
     """The update after ``loss.backward()``: every parameter's gradient
     (zero where it has none) clipped, the optimizer's step, the EMA where
     that step was applied; the gradients are released. Returns (gradient
-    norm, clipped norm)."""
-    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in state.params]
+    norm, clipped norm). Under fsdp each rank updates its shards, clipped
+    by the norm of the whole gradient."""
+    if state.fsdp is not None:
+        grads = state.fsdp.grads()
+        norm = state.fsdp.global_norm(grads)
+    else:
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in state.params]
+        norm = grad_norm(grads)
     if clipper is not None:
-        state.clip_state, (gnorm, thresh) = clipper(grads, state.clip_state)
+        state.clip_state, (gnorm, thresh) = clipper(grads, state.clip_state, norm)
         clipped = torch.minimum(gnorm, thresh)
     else:
-        gnorm = clipped = grad_norm(grads)
+        gnorm = clipped = norm
     if state.optimizer.update(state.params, grads):
         state.ema.update(state.params, ema_decay)
-    for p in state.params:
+    for p in state.grad_holders():
         p.grad = None
     return gnorm, clipped
 
@@ -261,7 +309,7 @@ def make_train_step(score_model: nn.Module, sde, loss_cfg: LossConfig, optim_cfg
 
     def train_step(state: TrainState, mix: Tensor, target: Tensor, sample_weight=None,
                    draws: Optional[Mapping] = None) -> Dict[str, object]:
-        for p in state.params:
+        for p in state.grad_holders():
             p.grad = None
         gen = step_generator(seed, state.step, mix.device, rank)
         loss = loss_fn(Draws(gen, draws), mix, target, sample_weight)

@@ -69,7 +69,7 @@ def test_train_validate_checkpoint_resume(data, tmp_path):
 
 
 @pytest.mark.parametrize("override,error", [
-    ("trainer.strategy=fsdp", NotImplementedError), ("trainer.accelerator=tpu", ValueError),
+    ("trainer.accelerator=tpu", ValueError),
 ])
 def test_unported_options_raise(data, tmp_path, override, error):
     with pytest.raises(error):

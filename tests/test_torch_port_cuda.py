@@ -1042,3 +1042,77 @@ def test_remat_gradients_on_the_card_equal_no_remat(dev, name):
     norm = sum(float(v.double().square().sum()) for v in g_n.values()) ** 0.5
     assert max(float((g_r[k] - g_n[k]).abs().max()) for k in g_n) <= 1e-6 * norm
     assert counts[False] < counts[True] < 2 * counts[False], counts
+
+
+# --- FSDP, tensor parallelism and three speakers ---------------------------
+# The flagship's convs with their output channels split over tp = 2 and 4
+# (each rank runs Cout / tp: the trunk's 128 and 256 at 64/32 and 128/64,
+# the output pyramid's 6 at 3; at tp = 4 it stays whole), and the
+# three-speaker stem (Cin = 8) and output pyramid (Cout = 8), at batch 1 of
+# 5 s.
+TP_AND_3SPK_SHAPES = [(1, 256, 320, 128, 64), (1, 256, 320, 128, 32), (1, 128, 160, 128, 64),
+                      (1, 64, 80, 256, 128), (1, 32, 40, 256, 64), (1, 16, 20, 256, 64), (1, 4, 5, 256, 128),
+                      (1, 256, 320, 128, 3), (1, 128, 160, 128, 3), (1, 256, 320, 8, 128), (1, 256, 320, 128, 8),
+                      (1, 8, 10, 256, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TP_AND_3SPK_SHAPES)
+def test_conv3x3_at_the_tp_and_three_speaker_shapes_matches_plain(dev, dtype, shape):
+    x, k, bias = _conv_inputs(dev, dtype, shape)
+    n0 = _build.launch_counts["conv3x3"]
+    got = conv3x3.conv3x3(x, k, bias)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["conv3x3"] == n0 + 1
+    _close(got, conv3x3.conv3x3_plain(x, k, bias), dtype)
+
+
+def test_tp_split_conv_equals_the_columns_of_the_whole_conv(dev):
+    """A rank's conv at Cout / 2 gives the whole conv's columns of its half
+    (the tensor-parallel layer's all-gather then rebuilds the whole output),
+    within the kernels' bf16 tolerance."""
+    x, k, bias = _conv_inputs(dev, torch.bfloat16, (1, 64, 80, 256, 256))
+    whole = conv3x3.conv3x3(x, k, bias)
+    halves = [conv3x3.conv3x3(x, k[..., i * 128:(i + 1) * 128].contiguous(), bias[i * 128:(i + 1) * 128])
+              for i in range(2)]
+    _close(torch.cat(halves, dim=-1), whole, torch.bfloat16)
+
+
+def test_fsdp_validation_after_a_step_on_the_card(one_rank_group, dev):
+    """The weight-cache hazard of FSDP on the card: a small model sharded by
+    ``mesh.shard_fsdp`` over a one-rank group separates with its EMA
+    weights (filling the convs' weight caches), takes two optimizer steps,
+    and separates again: equal within 1e-5 of scale to a one-process model
+    that holds the same EMA weights, and different from the first
+    separation."""
+    from diffsep_tpu_torch.model import DiffSepModel
+    from diffsep_tpu_torch.parallel import mesh
+    from diffsep_tpu_torch.train import loop, trainer
+    from diffsep_tpu_torch.train.ema import swapped
+
+    cfg = {"init_hack": 5, "init_hack_p": 0.5, "optimizer": {"lr": 1e-3}, **SMALL_F32}
+    model = DiffSepModel(cfg, device=dev, seed=3)
+    state = model.init_state()
+    trainer.shard_state(state, mesh.shard_fsdp(model.score_model, state.names, min_size=64))
+    assert not any(getattr(m, "keep_weight_copy", False) for m in model.score_model.modules())
+    rng = np.random.default_rng(4)
+    mix = torch.from_numpy(0.3 * rng.standard_normal((1, 1, 2000)).astype(np.float32))
+    kw = dict(predictor_name="ddim", corrector_name="none", N=2, schedule="log")
+
+    def separate():
+        with swapped(state.ema, state.params):
+            return model.separate(mix, generator=torch.Generator(device=dev).manual_seed(0), **kw)[0]
+
+    before = separate()
+    step = model.make_train_step(seed=0, forward=model.score_model)
+    for _ in range(2):
+        tgt = torch.from_numpy(0.2 * rng.standard_normal((2, 2, 2000)).astype(np.float32)).to(dev)
+        step(state, tgt.sum(dim=1, keepdim=True), tgt)
+    after = separate()
+    ema = state.state_dict()["ema"]["params"]
+    ref = DiffSepModel(cfg, device=dev, seed=3)
+    ref.score_model.load_state_dict({**loop.whole_model_state(model, state), **ema}, strict=True)
+    want = ref.separate(mix, generator=torch.Generator(device=dev).manual_seed(0), **kw)[0]
+    scale = want.abs().max().item()
+    assert (after - want).abs().max().item() <= 1e-5 * scale
+    assert (after - before).abs().max().item() > 1e-4 * scale
