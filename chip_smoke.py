@@ -157,6 +157,27 @@ Phases, each of which fails the run on any error:
      written here, cli.export_model --torch on phase 6's run (read back bit
      for bit) and --torch --avg-last-k 2 on the fsdp run (its two
      checkpoints' mean, bit for bit).
+ 14. the last modules of the JAX package: every block of
+     models/legacy_layers.py and every normalization variant
+     (legacy_blocks) at NCSNv2's CIFAR-10 width (ngf LEGACY_NGF = 128,
+     LEGACY_CLASSES = 232 noise scales) in float32 on the flagship's top
+     grid at batch 2 (the second MSF/Refine input at 128 x 160 x 256), with
+     seeded random weights: each block's conv3x3 launches equal its 3x3
+     stride-1 undilated convs (0 for the dilated ones), its output against
+     the plain versions on the card (TOL float32 times its hand convs, each
+     of which rounds), its device ms, and every conv shape held to TOL
+     float32 and timed alone against plain, cuDNN and the bound;
+     the same modules at 32 channels on 32 x 40, card against CPU
+     (LEGACY_CPU_TOL of scale); cli.figures reverse_diffusion_example on
+     phase 6's run dir and its folder's cv split at N = FIG_N with save_fig
+     captured (no matplotlib there): intermediates (30, 2, 1, 2, T) finite,
+     launches PER_EVAL x 60, the sources bit for bit get_pc_sampler's with
+     the same seed, seconds recorded; the C++ WAV decoder
+     (data/native_io.py) built there, bit for bit scipy over phase 6's
+     folder, the loader at the recipe's batch (6 rows x 3 files) on the
+     native path (its counter), host ms per batch against scipy's; and
+     fused_leaky_relu and get_score_fn (OUVE, OUVP; continuous and discrete)
+     card against CPU.
 
 The last lines are the `{"kernels": [...]}` summary, then
 `{"ok": true, "device": {...}}`. With --report, every result (per shape,
@@ -290,6 +311,13 @@ LONG_SECONDS, LONG_TOL = 70, 1e-4
 FSDP_STEPS, FSDP_BATCH, FSDP_VAL_N = 4, 3, 4
 FSDP_TOL = {"loss": 1e-3, "params": 1e-4, "validation": 1e-4}
 TP_N, TP_TOL, TOOLS_SAVE_N = 6, 1e-2, 2
+# phase 14: the legacy blocks at NCSNv2's CIFAR-10 width (ngf 128) and
+# number of noise scales (232 classes), float32, on the flagship's top grid
+# at batch 2 (the second MSF/Refine input at half the grid and twice the
+# width); the width and grid of their card-vs-CPU check and its tolerance
+# (of scale); the figure's sampler steps
+LEGACY_NGF, LEGACY_CLASSES, LEGACY_BATCH, LEGACY_GRID = 128, 232, 2, (256, 320)
+LEGACY_SMALL, LEGACY_CPU_TOL, FIG_N = (32, (32, 40)), 1e-3, 30
 # device time by kernel name fragment (torch.profiler's kernel names)
 OPTION_GROUPS = (("hand conv3x3", ("conv3x3",)), ("hand FIR", ("fir2x",)),
                  ("cuDNN convs", ("dgrad", "wgrad", "cudnn", "xmma", "implicit_convolve", "conv2d")),
@@ -3130,6 +3158,311 @@ def slice12_phase(dev, card, cycles_per_ms, tmp, run_dir, data, checked):
     return out, dict(total)
 
 
+def legacy_blocks(c, classes):
+    """Phase 14's modules at width ``c`` with ``classes`` noise scales: every
+    block of models/legacy_layers.py and every normalization variant, by
+    name -> (make(), inputs kind); "x" takes (x,), "xy" (x, y), "pair" the
+    MSF/Refine inputs ([x, x at half the grid and twice the width], y?,
+    shape), "odd" x one row and column short, "half" x at half the grid,
+    "temb" (x, time embedding)."""
+    import torch.nn.functional as F
+
+    from diffsep_tpu_torch.models import legacy_layers as L
+    from diffsep_tpu_torch.models import normalization as N
+
+    cin = N.ConditionalInstanceNorm2dPlus
+    return {
+        "InstanceNorm2dPlus": (lambda: N.InstanceNorm2dPlus(c), "x"),
+        "ConditionalInstanceNorm2dPlus": (lambda: N.ConditionalInstanceNorm2dPlus(c, classes), "xy"),
+        "VarianceNorm2d": (lambda: N.VarianceNorm2d(c), "x"),
+        "ConditionalVarianceNorm2d": (lambda: N.ConditionalVarianceNorm2d(c, classes), "xy"),
+        "ConditionalBatchNorm2d eval": (lambda: N.ConditionalBatchNorm2d(c, classes), "xy"),
+        "ConditionalBatchNorm2d train": (lambda: N.ConditionalBatchNorm2d(c, classes), "xy"),
+        "ConditionalInstanceNorm2d": (lambda: N.ConditionalInstanceNorm2d(c, classes), "xy"),
+        "InstanceNorm2d": (lambda: N.InstanceNorm2d(c), "x"),
+        "NoneNorm2d": (lambda: N.NoneNorm2d(c), "x"),
+        "ConditionalNoneNorm2d": (lambda: N.ConditionalNoneNorm2d(c, classes), "xy"),
+        "GroupNorm (get_normalization)": (lambda: N.get_normalization({"model": {"normalization": "GroupNorm"}})(c),
+                                          "x"),
+        "CRPBlock maxpool": (lambda: L.CRPBlock(c, 2), "x"),
+        "CRPBlock avgpool": (lambda: L.CRPBlock(c, 2, maxpool=False), "x"),
+        "CondCRPBlock": (lambda: L.CondCRPBlock(c, 2, classes, cin), "xy"),
+        "RCUBlock": (lambda: L.RCUBlock(c, 2, 2), "x"),
+        "CondRCUBlock": (lambda: L.CondRCUBlock(c, 2, 2, classes, cin), "xy"),
+        "MSFBlock": (lambda: L.MSFBlock([c, 2 * c], c), "pair"),
+        "CondMSFBlock": (lambda: L.CondMSFBlock([c, 2 * c], c, classes, cin), "pair y"),
+        "RefineBlock": (lambda: L.RefineBlock([c, 2 * c], c), "pair"),
+        "RefineBlock end": (lambda: L.RefineBlock([c], c, end=True), "single"),
+        "CondRefineBlock": (lambda: L.CondRefineBlock([c, 2 * c], c, classes, cin), "pair y"),
+        "CondRefineBlock end": (lambda: L.CondRefineBlock([c], c, classes, cin, end=True), "single y"),
+        "ConvMeanPool": (lambda: L.ConvMeanPool(c, 2 * c), "x"),
+        "ConvMeanPool adjust_padding": (lambda: L.ConvMeanPool(c, 2 * c, adjust_padding=True), "odd"),
+        "MeanPoolConv": (lambda: L.MeanPoolConv(c, 2 * c), "x"),
+        "UpsampleConv": (lambda: L.UpsampleConv(c, c), "half"),
+        "ResidualBlock": (lambda: L.ResidualBlock(c, c), "x"),
+        "ResidualBlock widen": (lambda: L.ResidualBlock(c, 2 * c), "x"),
+        "ResidualBlock down": (lambda: L.ResidualBlock(c, 2 * c, resample="down"), "x"),
+        "ResidualBlock dilation 2": (lambda: L.ResidualBlock(c, c, dilation=2), "x"),
+        "ResidualBlock down dilation 2": (lambda: L.ResidualBlock(c, 2 * c, resample="down", dilation=2), "x"),
+        "ResidualBlock InstanceNorm++": (lambda: L.ResidualBlock(c, c, normalization=N.InstanceNorm2dPlus), "x"),
+        "ConditionalResidualBlock": (lambda: L.ConditionalResidualBlock(c, c, classes), "xy"),
+        "ConditionalResidualBlock down": (lambda: L.ConditionalResidualBlock(c, 2 * c, classes, resample="down"),
+                                          "xy"),
+        "ConditionalResidualBlock dilation 2": (lambda: L.ConditionalResidualBlock(c, 2 * c, classes, dilation=2),
+                                                "xy"),
+        "ResnetBlockDDPM": (lambda: L.ResnetBlockDDPM(F.silu, c, 2 * c, temb_dim=4 * c), "temb"),
+        "ResnetBlockDDPM conv_shortcut": (lambda: L.ResnetBlockDDPM(F.silu, c, 2 * c, conv_shortcut=True), "x"),
+    }
+
+
+def seeded_block(make, seed, train=False):
+    """``make()`` on the CPU, its parameters drawn from a generator seeded
+    with ``seed`` (``legacy_layers.reset_parameters``), then each moved by
+    N(0, 1) / sqrt(fan-in) (a vector's by 0.1 N(0, 1)), so that init_scale=0
+    layers and constant embedding columns count while activations keep
+    their scale through a chain of convs, and the batch norms' running
+    statistics drawn; in eval mode unless ``train``."""
+    import torch
+
+    from diffsep_tpu_torch.models import legacy_layers
+
+    block = make()
+    g = torch.Generator().manual_seed(seed)
+    legacy_layers.reset_parameters(block, g)
+    with torch.no_grad():
+        for p in block.parameters():
+            p.add_(torch.randn(p.shape, generator=g) * (0.1 if p.ndim < 2 else (p.numel() / p.shape[0]) ** -0.5))
+        for name, buf in block.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(0.3 * torch.randn(buf.shape, generator=g))
+            elif name.endswith("running_var"):
+                buf.copy_(0.5 + torch.rand(buf.shape, generator=g))
+    return block.train(train)
+
+
+def legacy_inputs(kind, c, grid, classes, seed, dev):
+    """The inputs of a ``legacy_blocks`` entry: batch LEGACY_BATCH of
+    unit-variance float32 on ``grid`` (drawn on the CPU from ``seed``)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    b, (h, w) = LEGACY_BATCH, grid
+
+    def x(hh=h, ww=w, cc=c):
+        return torch.randn((b, hh, ww, cc), generator=g).to(dev)
+
+    def y():
+        return torch.randint(0, classes, (b,), generator=g).to(dev)
+
+    def pair():
+        return [x(), x(h // 2, w // 2, 2 * c)]
+
+    return {"x": lambda: (x(),), "xy": lambda: (x(), y()), "odd": lambda: (x(h - 1, w - 1),),
+            "half": lambda: (x(h // 2, w // 2),), "temb": lambda: (x(), torch.randn((b, 4 * c), generator=g).to(dev)),
+            "pair": lambda: (pair(), (h, w)), "pair y": lambda: (pair(), y(), (h, w)),
+            "single": lambda: ([x()], (h, w)), "single y": lambda: ([x()], y(), (h, w))}[kind]()
+
+
+def kernel_convs(module):
+    """The 3x3 stride-1 undilated convs of ``module``: each takes the hand
+    kernel once per forward."""
+    from diffsep_tpu_torch.models import layers
+
+    return sum(1 for m in module.modules() if isinstance(m, layers.Conv) and m.weight.shape[-1] == 3
+               and m.stride == 1 and getattr(m, "dilation", 1) == 1)
+
+
+def legacy_phase(dev, card, cycles_per_ms, tmp, run_dir, data):
+    """Phase 14: the legacy blocks at NCSNv2's width, the figures CLI's
+    reverse_diffusion_example, the native WAV decoder, fused_act and
+    get_score_fn; see the module docstring. ``run_dir`` and ``data`` are
+    phase 6's. Returns (report, launches over the phase's main-path runs:
+    one forward of each block and the figure's sampler)."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffsep_tpu_torch.cli import eval_common, figures
+    from diffsep_tpu_torch.cli.loading import load_model
+    from diffsep_tpu_torch.data import audio_io, native_io
+    from diffsep_tpu_torch.data.loader import DataLoader
+    from diffsep_tpu_torch.data.wsj0_mix import WSJ0_mix
+    from diffsep_tpu_torch.models import layers, legacy_layers, score_utils
+    from diffsep_tpu_torch.ops import _build, fused_act
+    from diffsep_tpu_torch.sde.ouve import OUVESDE, OUVPSDE
+    from diffsep_tpu_torch.train.losses import normalize_batch
+
+    out, total = {}, collections.Counter()
+    t_phase = time.perf_counter()
+
+    # 1. every block at ngf = LEGACY_NGF on the top grid, float32: its hand
+    # conv launches, its output against the plain versions on the card, its
+    # device time; then every conv shape held and timed alone
+    c, grid, classes = LEGACY_NGF, LEGACY_GRID, LEGACY_CLASSES
+    blocks, shapes = {}, collections.Counter()
+    for i, (name, (make, kind)) in enumerate(legacy_blocks(c, classes).items()):
+        block = seeded_block(make, 1400 + i, train=name.endswith("train")).to(dev)
+        inputs = legacy_inputs(kind, c, grid, classes, 1400 + i, dev)
+        want_convs = kernel_convs(block)
+        with torch.no_grad():
+            _build.reset_counts()
+            got = block(*inputs)
+            torch.cuda.synchronize()
+            counts = dict(_build.launch_counts)
+            shapes.update(_build.launch_shapes)
+            total.update(counts)
+            with plain_kernels():
+                want = block(*inputs)
+            scale = max(1.0, want.abs().max().item())
+            err = (got - want).abs().max().item()
+            ms = time_ms(lambda: block(*inputs), cycles_per_ms)
+        assert counts == ({"conv3x3": want_convs} if want_convs else {}), (name, counts, want_convs)
+        # each hand conv adds its own rounding (each is held to TOL alone below)
+        assert torch.isfinite(got).all() and err <= TOL["float32"] * max(1, want_convs) * scale, (name, err, scale)
+        blocks[name] = dict(shape=list(got.shape), conv3x3_launches=counts.get("conv3x3", 0),
+                            kernels_vs_plain=err / scale, ms=ms)
+        log(f"[legacy] {name} at {c} channels, {LEGACY_BATCH} x {grid[0]} x {grid[1]}, f32: conv3x3 launches "
+            f"{blocks[name]['conv3x3_launches']} (its undilated 3x3 convs), kernels vs plain {err / scale:.3g} of "
+            f"scale, {ms:.3f} ms ({card})")
+        del block, inputs, got, want
+    out["blocks"] = blocks
+    checks = []
+    for j, ((k, shape, cout), cnt) in enumerate(sorted(shapes.items(), key=str)):
+        r = check_kernel(k, shape, cout, "float32", dev, 1450 + j, cycles_per_ms)
+        r["launches_per_legacy_set"] = cnt
+        checks.append(r)
+        log(f"[legacy-kernel] {k} {shape}->{cout} f32 x{cnt}:{plan_text(r['plan'])} err {r['max_abs_err']:.3g} "
+            f"(tol {r['tol']:.3g}) ms {r['ms']:.4f} plain {r['plain_ms']:.4f} lib {r['library_ms']:.4f}"
+            f"{f32_lib_text(r)} bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
+    out["kernel_checks"] = checks
+    assert not [r for r in checks if not r["ok"]], checks
+    out["per_set"] = {key: sum(r[key] * r["launches_per_legacy_set"] for r in checks)
+                      for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out["per_set"]["launches"] = sum(shapes.values())
+    out["per_set"]["blocks_ms"] = sum(b["ms"] for b in blocks.values())
+    log(f"[legacy] the set of {len(blocks)} modules: conv3x3 {out['per_set']['launches']} launches, hand "
+        f"{out['per_set']['ms']:.3f} ms, plain {out['per_set']['plain_ms']:.3f}, cuDNN {out['per_set']['library_ms']:.3f},"
+        f" bound {out['per_set']['bound_ms']:.3f}; the blocks' device time {out['per_set']['blocks_ms']:.3f} ms "
+        f"({card})")
+
+    # 2. the same modules at LEGACY_SMALL, card against CPU
+    sc, sgrid = LEGACY_SMALL
+    small = {}
+    for i, (name, (make, kind)) in enumerate(legacy_blocks(sc, classes).items()):
+        cpu = seeded_block(make, 1500 + i, train=name.endswith("train"))
+        gpu = seeded_block(make, 1500 + i, train=name.endswith("train")).to(dev)
+        with torch.no_grad():
+            want = cpu(*legacy_inputs(kind, sc, sgrid, classes, 1500 + i, "cpu"))
+            got = gpu(*legacy_inputs(kind, sc, sgrid, classes, 1500 + i, dev)).cpu()
+        scale = want.abs().max().item()
+        small[name] = (got - want).abs().max().item() / scale
+        assert small[name] <= LEGACY_CPU_TOL, (name, small[name])
+    out["card_vs_cpu_small"] = small
+    log(f"[legacy] at {sc} channels on {sgrid[0]} x {sgrid[1]}, card against CPU: largest "
+        f"{max(small.values()):.3g} of scale ({max(small, key=small.get)}), tolerance {LEGACY_CPU_TOL}")
+
+    # 3. figures reverse_diffusion_example on phase 6's run dir: the
+    # flagship's PC sampler at N = FIG_N with intermediates
+    captured = {}
+
+    def capture(x, ims, target, out_dir, index):
+        captured.update(x=x, ims=ims, target=target)
+
+    argv = [str(run_dir), "--data", str(data), "--out", str(Path(tmp) / "figures"), "-N", str(FIG_N)]
+    with mock.patch.object(eval_common, "save_fig", capture):
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        x, nfe, ims = figures.reverse_diffusion_example(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(_build.launch_counts)
+    total.update(counts)
+    n = captured["target"].shape[-1]
+    assert captured["ims"].shape == (FIG_N, 2, 1, 2, n) and np.isfinite(captured["ims"]).all(), \
+        captured["ims"].shape
+    assert nfe == 2 * FIG_N and counts == {k: v * nfe for k, v in PER_EVAL.items()}, (nfe, counts)
+    model = load_model(run_dir, device=dev)
+    mix, _ = WSJ0_mix(data, 2, FS, "max", "val")[0]
+    (mix, _), _, _ = normalize_batch(torch.from_numpy(mix)[None])
+    plain_x, _ = model.get_pc_sampler("reverse_diffusion", "ald2", mix, generator=torch.Generator(dev).manual_seed(0),
+                                      N=FIG_N, snr=0.5, corrector_steps=1)()
+    assert torch.equal(plain_x, x), (plain_x - x).abs().max().item()
+    out["reverse_diffusion_example"] = dict(seconds=secs, nfe=nfe, launches=counts, ims_shape=list(ims.shape))
+    log(f"[figures] reverse_diffusion_example on phase 6's run dir, N={FIG_N}: {secs:.2f} s, intermediates "
+        f"{tuple(ims.shape)} finite, sources bit for bit get_pc_sampler's, launches {counts} ({card})")
+    del model
+
+    # 4. the native WAV decoder, built here: bit for bit scipy over phase
+    # 6's folder; the loader at the recipe's batch takes it; host ms per
+    # batch against scipy's item by item
+    t0 = time.perf_counter()
+    lib = native_io.build()
+    build_s = time.perf_counter() - t0
+    files = sorted(Path(data).rglob("*.wav"))
+    decoded = native_io.load_wav_batch(files)
+    assert all(np.array_equal(d, audio_io.load_wav(f)[0]) for d, f in zip(decoded, files))
+    ds = WSJ0_mix(data, 2, FS, "max", "train")
+    before = native_io.batch_calls
+    batches = list(DataLoader(ds, batch_size=TRAIN_BATCH, shuffle=True, seed=0, num_shards=1, prefetch=0))
+    loader_calls = native_io.batch_calls - before
+    assert loader_calls == len(batches) == len(ds) // TRAIN_BATCH, loader_calls
+    rows = list(range(TRAIN_BATCH))
+
+    def host_ms(fn, reps=7):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    native_ms = host_ms(lambda: ds.getitem_batch(rows))
+    scipy_ms = host_ms(lambda: [ds[i] for i in rows])
+    out["native_io"] = dict(library=lib.name, build_s=build_s, files=len(files), loader_batches=len(batches),
+                            loader_batch_calls=loader_calls, native_ms_per_batch=native_ms,
+                            scipy_ms_per_batch=scipy_ms)
+    log(f"[native_io] {lib.name} built in {build_s:.2f} s; {len(files)} files decoded bit for bit as scipy; the "
+        f"loader's {len(batches)} batches of {TRAIN_BATCH} rows x 3 files took the native path; host ms per batch "
+        f"{native_ms:.3f} native, {scipy_ms:.3f} scipy item by item ({card})")
+
+    # 5. fused_act and get_score_fn (OUVE, OUVP), card against CPU
+    g = torch.Generator().manual_seed(1600)
+    xa, bias = torch.randn((2, c, 64, 80), generator=g), torch.randn((c,), generator=g)
+    want = fused_act.fused_leaky_relu(xa, bias)
+    got = fused_act.fused_leaky_relu(xa.to(dev), bias.to(dev)).cpu()
+    fused_err = (got - want).abs().max().item() / want.abs().max().item()
+    assert fused_err <= 1e-6, fused_err
+    def ddpm():
+        return legacy_layers.ResnetBlockDDPM(F.silu, sc, temb_dim=4 * sc)
+
+    block_cpu = seeded_block(ddpm, 1601)
+    block_gpu = seeded_block(ddpm, 1601).to(dev)
+    xs = torch.randn((2, sgrid[0], sgrid[1], sc), generator=g)
+    ys = torch.randn(xs.shape, generator=g)
+    ts = torch.tensor([0.3, 0.8])
+    score_errs = {}
+    for label, sde in (("ouve", OUVESDE(N=30)), ("ouvp", OUVPSDE(N=30))):
+        for continuous in (True, False):
+            res = {}
+            for d, blk in (("cpu", block_cpu), (dev, block_gpu)):
+                def model_fn(x, labels, blk=blk):
+                    return blk(x, layers.get_timestep_embedding(labels, 4 * sc))
+
+                with torch.no_grad():
+                    res[str(d)] = score_utils.get_score_fn(sde, model_fn, continuous)(
+                        xs.to(d), ts.to(d), ys.to(d)).cpu()
+            want = res["cpu"]
+            key = f"{label} {'continuous' if continuous else 'discrete'}"
+            score_errs[key] = (res[str(dev)] - want).abs().max().item() / want.abs().max().item()
+            assert score_errs[key] <= LEGACY_CPU_TOL, (key, score_errs[key])
+    out["fused_act_card_vs_cpu"], out["score_fn_card_vs_cpu"] = fused_err, score_errs
+    log(f"[legacy] fused_leaky_relu card vs CPU {fused_err:.3g} of scale; get_score_fn card vs CPU {score_errs}")
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = dict(total)
+    log(f"[legacy] phase 14 took {out['seconds']:.1f} s; launches {dict(total)}")
+    return out, dict(total)
+
+
 def ptxas_lines(text):
     """nvcc's -Xptxas -v report, one instantiation at a time: its kernel (the
     mangled template arguments shortened) beside its register and spill lines."""
@@ -3392,6 +3725,9 @@ def main() -> int:
                     for r in report[key]["kernel_checks"] if r["dtype"] == "bfloat16"}
         report["slice12"], slice12_counts = slice12_phase(dev, card, cycles_per_ms, tmp, train["run_dir"],
                                                           Path(tmp) / "wsj0_mix", checked)
+        # 14. the legacy blocks, the figures CLI, the native decoder
+        report["legacy"], legacy_counts = legacy_phase(dev, card, cycles_per_ms, tmp, train["run_dir"],
+                                                       Path(tmp) / "wsj0_mix")
 
     # summary per kernel: the bf16 (serving) times summed over one score
     # evaluation's launches at batch 2 (the same in float32 apart, with the
@@ -3414,6 +3750,8 @@ def main() -> int:
         ddp_rows = [r for r in report["ddp"]["kernel_checks"] if r["kernel"] == k]
         option_rows = [r for r in report["options"]["kernel_checks"] if r["kernel"] == k]
         slice12_rows = [r for r in report["slice12"]["kernel_checks"] if r["kernel"] == k]
+        legacy_rows = [r for r in report["legacy"]["kernel_checks"] if r["kernel"] == k]
+        figure_counts = report["legacy"]["reverse_diffusion_example"]["launches"]
         if k == "fir_up2x":  # the down's backward at odd sizes runs the up kernel
             enh_rows += report["enhance"]["odd_fir_backward"]
         enh_tr = [r for r in enh_rows if "launches_per_micro_step" in r]
@@ -3428,9 +3766,9 @@ def main() -> int:
         summary.append(dict(
             name=k, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=(serve_counts[k] + train["launches"][k] + entry_counts[k] + enh_counts[k] + dist_counts[k]
-                      + ddp_counts[k] + option_counts[k] + slice12_counts[k]),
+                      + ddp_counts[k] + option_counts[k] + slice12_counts[k] + legacy_counts.get(k, 0)),
             max_abs_err=max(r["max_abs_err"] for r in rows + tr + entry_rows + enh_rows + dist_rows + ddp_rows
-                            + option_rows + slice12_rows),
+                            + option_rows + slice12_rows + legacy_rows),
             ms=per_eval_sum("ms"), plain_ms=per_eval_sum("plain_ms"),
             bound_ms=per_eval_sum("bound_ms"),
             bound_by="operations" if per_eval_sum("ops_ms") >= per_eval_sum("bytes_ms") else "bytes",
@@ -3442,7 +3780,13 @@ def main() -> int:
                               "ddp ranks, allgpus, preemption, evaluate_mp": ddp_counts[k],
                               "diffuse (phase 11)": diffuse_counts[k],
                               "NCSN++ options (phase 12)": option_counts[k],
-                              "fsdp, tp=2, three speakers, tools (phase 13)": slice12_counts[k]},
+                              "fsdp, tp=2, three speakers, tools (phase 13)": slice12_counts[k],
+                              "legacy blocks (phase 14)": legacy_counts.get(k, 0) - figure_counts[k],
+                              "figures reverse_diffusion_example (phase 14)": figure_counts[k]},
+            launches_per_legacy_set_ngf128=sum(r["launches_per_legacy_set"] for r in legacy_rows),
+            legacy_f32_per_set={key: sum(r[key] * r["launches_per_legacy_set"] for r in legacy_rows)
+                                for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            launches_per_reverse_diffusion_example=figure_counts[k],
             launches_per_eval_tp2_per_rank=PER_EVAL[k], launches_per_eval_three_speakers=PER_EVAL[k],
             tp2_ms_per_eval_new_shapes=report["slice12"]["tp_kernel_ms_per_eval"][k],
             phase13_shapes=[dict(path=r["path"], shape=r["shape"], cout=r["cout"], plan=r["plan"],

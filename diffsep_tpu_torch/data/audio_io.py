@@ -3,6 +3,8 @@
 Counterpart of ``diffsep_tpu/data/audio_io.py``: float32 (channels,
 samples) in [-1, 1], integer PCM normalized as torchaudio.load does. The
 in-memory pair serves the HTTP front end (request and response bodies).
+``set_backend("native")`` makes ``load_wav`` decode with the C++ decoder
+of ``native_io.py`` instead of scipy.
 """
 from __future__ import annotations
 
@@ -13,7 +15,18 @@ from typing import Tuple
 import numpy as np
 from scipy.io import wavfile
 
-__all__ = ["load_wav", "load_wav_bytes", "save_wav", "wav_to_bytes"]
+__all__ = ["load_wav", "load_wav_bytes", "save_wav", "set_backend", "wav_to_bytes"]
+
+_BACKENDS = ("scipy", "native")
+_backend = "scipy"
+
+
+def set_backend(name: str) -> None:
+    """The decoder of ``load_wav``: "scipy" (the default) or "native"."""
+    global _backend
+    if name not in _BACKENDS:
+        raise ValueError(f"unknown wav backend {name!r}; one of {_BACKENDS}")
+    _backend = name
 
 
 def _normalize_decoded(fs: int, data: np.ndarray) -> Tuple[np.ndarray, int]:
@@ -42,6 +55,10 @@ def _encode_pcm(data: np.ndarray, dtype: str) -> np.ndarray:
 
 def load_wav(path) -> Tuple[np.ndarray, int]:
     """Read a wav file -> (float32 (channels, samples) in [-1, 1], fs)."""
+    if _backend == "native":
+        from . import native_io
+
+        return native_io.load_wav(path)
     return _normalize_decoded(*wavfile.read(str(path)))
 
 

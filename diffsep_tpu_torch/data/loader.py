@@ -3,8 +3,9 @@
 Counterpart of ``diffsep_tpu/data/loader.py``: a shuffling batch iterator
 (a numpy permutation per epoch from ``seed``) whose wav decoding runs in a
 thread ahead of the consumer, so the card does not wait for the host's
-reads. Batches are numpy; the loop pins them and copies them to the card
-without blocking.
+reads; a dataset with ``getitem_batch`` (WSJ0-mix) decodes each batch in
+one call of the C++ decoder. Batches are numpy; the loop pins them and
+copies them to the card without blocking.
 
 Under data parallelism each rank reads its own shard, as Lightning's
 DistributedSampler gives the reference's DDP ranks theirs: every rank draws
@@ -71,7 +72,10 @@ class DataLoader:
             chunk = idx[s : s + self.batch_size]
             if self.drop_last and len(chunk) < self.batch_size:
                 return
-            rows = [self.dataset[int(i)] for i in chunk]
+            if hasattr(self.dataset, "getitem_batch"):  # one native decode per batch
+                rows = self.dataset.getitem_batch([int(i) for i in chunk])
+            else:
+                rows = [self.dataset[int(i)] for i in chunk]
             if self.pad_to_multiple:
                 yield self.collate_fn(rows, pad_to_multiple=self.pad_to_multiple)
             else:

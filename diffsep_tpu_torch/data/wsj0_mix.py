@@ -5,7 +5,9 @@ Counterpart of ``diffsep_tpu/data/wsj0_mix.py``: the directory layout
 LibriMix ``mix_clean``/``mix_both``) and ``s1..sN/``, random crops to
 ``max_len_s`` drawn from ``rng``, ``max_n_samples`` truncation, and the
 centered pad-to-longest collator. Items are numpy arrays; the training loop
-moves batches to the card.
+moves batches to the card. ``getitem_batch`` decodes a whole batch in one
+call of the C++ decoder (``native_io.load_wav_batch``), as the loader reads
+it.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Optional, Union
 
 import numpy as np
 
+from . import native_io
 from .audio_io import load_wav
 
 split_map = {"test": "tt", "val": "cv", "train": "tr", "libri2mix_test": "test"}
@@ -53,11 +56,28 @@ class WSJ0_mix:
         filename = self.file_list[idx]
         mix, _ = load_wav(self.path_mix / filename)
         tgt = np.concatenate([load_wav(p / filename)[0] for p in self.path_src], axis=0)
+        return self._crop(mix, tgt)
+
+    def _crop(self, mix, tgt):
         if self.max_len is not None and tgt.shape[-1] > self.max_len:
             p = int(self.rng.integers(0, tgt.shape[-1] - self.max_len))
             tgt = tgt[..., p : p + self.max_len]
             mix = mix[..., p : p + self.max_len]
         return mix, tgt
+
+    def getitem_batch(self, indices):
+        """The items at ``indices``, their mixture and source files decoded in
+        one ``native_io.load_wav_batch`` call, cropped in order as item by
+        item. Item by item (``__getitem__``) only where the decoder cannot
+        be built or loaded here (``native_io.available`` warns once)."""
+        if not native_io.available():
+            return [self[int(i)] for i in indices]
+        names = [self.file_list[int(i)] for i in indices]
+        paths = [d / f for f in names for d in (self.path_mix, *self.path_src)]
+        bufs = native_io.load_wav_batch(paths)
+        per_item = 1 + len(self.path_src)
+        return [self._crop(bufs[k * per_item], np.concatenate(bufs[k * per_item + 1:(k + 1) * per_item], axis=0))
+                for k in range(len(names))]
 
 
 def max_collator(batch, pad_to_multiple: Optional[int] = None):

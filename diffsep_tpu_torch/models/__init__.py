@@ -1,5 +1,6 @@
 from .cdiffuse import DiffuSE
-from .convert import (diffuse_state_dict_from_jax, dptnet_state_dict_from_jax, state_dict_from_jax,
+from .convert import (diffuse_state_dict_from_jax, dptnet_state_dict_from_jax, legacy_state_dict_from_jax,
+                      state_dict_from_jax,
                       state_dicts_from_reference, tcn_state_dict_from_jax, train_state_from_jax)
 from .dptnet import DPTNet
 from .ncsnpp import NCSNpp
@@ -9,4 +10,5 @@ from .tcn import TemporalConvNet
 
 __all__ = ["NCSNpp", "ScoreModelNCSNpp", "ScoreModelDiffuSE", "DiffuSE", "TemporalConvNet", "DPTNet",
            "state_dict_from_jax", "state_dicts_from_reference", "train_state_from_jax",
-           "diffuse_state_dict_from_jax", "tcn_state_dict_from_jax", "dptnet_state_dict_from_jax"]
+           "diffuse_state_dict_from_jax", "tcn_state_dict_from_jax", "dptnet_state_dict_from_jax",
+           "legacy_state_dict_from_jax"]

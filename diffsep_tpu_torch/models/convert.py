@@ -26,6 +26,13 @@ parameters, the EMA shadow and its count, Adam's moments and count,
 history, each tree of parameter shape through the same mapping. Both
 packages can then take the same step from the same state.
 
+``legacy_state_dict_from_jax`` maps one block of ``legacy_layers.py`` or
+``normalization.py`` (NHWC, as NCSN++): kernels and GroupNorm as above,
+``Embed_0.embedding`` -> ``embed.weight``, InstanceNorm++'s and
+VarianceNorm2d's ``alpha``/``gamma`` offsets from 1 -> the factors, module
+lists ``convs_<i>`` -> ``convs.<i>``, and a batch norm's ``batch_stats``
+``mean``/``var`` -> ``running_mean``/``running_var``.
+
 ``diffuse_state_dict_from_jax``, ``tcn_state_dict_from_jax`` and
 ``dptnet_state_dict_from_jax`` do the same for the other backbones, whose
 port computes in (batch, channels, time):
@@ -50,7 +57,7 @@ import torch
 
 __all__ = ["FROM_REFERENCE_TARGETS", "TO_REFERENCE_TARGETS", "state_dict_from_jax", "state_dicts_from_reference",
            "save_reference_checkpoint", "to_reference_config", "train_state_from_jax", "diffuse_state_dict_from_jax",
-           "tcn_state_dict_from_jax", "dptnet_state_dict_from_jax"]
+           "tcn_state_dict_from_jax", "dptnet_state_dict_from_jax", "legacy_state_dict_from_jax"]
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
@@ -104,6 +111,33 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for key in _TRANSFORM_SCALARS:
         if key in params:
             out[key] = _tensor(params[key])
+    return out
+
+
+_LEGACY_LISTS = ("convs", "norms", "adapt_convs")
+
+
+def legacy_state_dict_from_jax(params: Mapping[str, Any],
+                               batch_stats: Mapping[str, Any] = None) -> Dict[str, torch.Tensor]:
+    """A JAX legacy block's params (and, for a block holding a
+    ``ConditionalBatchNorm2d``, its ``batch_stats``) -> the port block's
+    ``state_dict()``, to load with ``strict=True``."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(params):
+        arr = np.asarray(arr, np.float32)
+        mods = [_indexed(p, _LEGACY_LISTS) for p in path[:-1]]
+        name = path[-1]
+        if mods and mods[-1] == "Embed_0":
+            mods[-1], name = "embed", "weight"
+        elif name in ("alpha", "gamma"):
+            arr = arr + np.float32(1.0)
+        elif name != "beta":
+            (*_, name), arr = _deconvert_leaf(path, arr)
+        out[".".join(mods + [name])] = _tensor(arr)
+    for path, arr in _flatten(batch_stats or {}):
+        prefix = ".".join(_indexed(p, _LEGACY_LISTS) for p in path[:-1])
+        out[f"{prefix}.running_{path[-1]}"] = _tensor(arr)
+        out[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
     return out
 
 

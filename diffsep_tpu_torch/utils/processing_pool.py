@@ -1,11 +1,11 @@
 """Host worker pools for metrics computed on the CPU.
 
-Counterpart of ``ProcessingPool`` of ``diffsep_tpu/utils/processing_pool.py``
-(the reference's): the composite measures of ``cli/evaluate_covl.py`` run
-in a host pool. A task that raises does not end the run: its traceback is
-printed and kept in ``errors``, and its result is None. ``wait_results``
-returns the results in submission order. (The JAX package's
-``SyncProcessingPool`` and ``pop`` have no caller there or here.)
+Counterpart of ``diffsep_tpu/utils/processing_pool.py`` (the
+reference's): the composite measures of ``cli/evaluate_covl.py`` run in a
+host pool. A task that raises does not end the run: its traceback is
+printed and kept in ``errors``, and its result is None. ``pop`` returns the
+next result and ``wait_results`` all of them, in submission order;
+``SyncProcessingPool.push`` waits while every worker is busy.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import concurrent.futures as cf
 import traceback
 from typing import Any, Callable, List, Optional
 
-__all__ = ["ProcessingPool"]
+__all__ = ["ProcessingPool", "SyncProcessingPool"]
 
 
 class ProcessingPool:
@@ -38,6 +38,10 @@ class ProcessingPool:
             print(tb)
             return None
 
+    def pop(self) -> Any:
+        """The result of the earliest pending task."""
+        return self._result(self._futures.pop(0))
+
     def wait_results(self, progress_bar: bool = False) -> List[Any]:
         """Every pending result, in submission order (a tqdm bar where
         ``progress_bar`` and tqdm is installed)."""
@@ -60,3 +64,19 @@ class ProcessingPool:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class SyncProcessingPool(ProcessingPool):
+    """A pool whose ``push`` blocks while all ``num_workers`` workers are
+    busy (backpressure on the producer)."""
+
+    def __init__(self, num_workers: int = 4):
+        super().__init__(num_workers)
+        self._limit = num_workers
+
+    def push(self, fn: Callable, *args, **kwargs) -> None:
+        busy = [f for f in self._futures if not f.done()]
+        while len(busy) >= self._limit:
+            cf.wait(busy, return_when=cf.FIRST_COMPLETED)
+            busy = [f for f in self._futures if not f.done()]
+        super().push(fn, *args, **kwargs)

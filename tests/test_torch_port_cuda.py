@@ -1116,3 +1116,77 @@ def test_fsdp_validation_after_a_step_on_the_card(one_rank_group, dev):
     scale = want.abs().max().item()
     assert (after - want).abs().max().item() <= 1e-5 * scale
     assert (after - before).abs().max().item() > 1e-4 * scale
+
+
+# The legacy blocks (models/legacy_layers.py) at NCSNv2's width (ngf 128)
+# on the flagship's top grid: the conv shapes they give the hand kernel in
+# float32 (the second MSF/Refine input at 128 x 160 x 256)
+LEGACY_F32_SHAPES = [(2, 256, 320, 128, 128), (2, 128, 160, 256, 128), (2, 128, 160, 256, 256),
+                     (2, 256, 320, 128, 256), (2, 128, 160, 128, 256), (2, 256, 320, 256, 256)]
+
+
+@pytest.mark.parametrize("shape", LEGACY_F32_SHAPES)
+def test_conv3x3_at_the_legacy_shapes_matches_plain(dev, shape):
+    x, k, bias = _conv_inputs(dev, torch.float32, shape)
+    _close(conv3x3.conv3x3(x, k, bias), conv3x3.conv3x3_plain(x, k, bias), torch.float32)
+
+
+def _legacy_cases():
+    import torch.nn.functional as F
+
+    from diffsep_tpu_torch.models import legacy_layers as L
+    from diffsep_tpu_torch.models import normalization as N
+
+    c, cin = 32, N.ConditionalInstanceNorm2dPlus
+    return {
+        "CRPBlock": (lambda: L.CRPBlock(c, 2), "x", 2),
+        "CondRefineBlock": (lambda: L.CondRefineBlock([c, 2 * c], c, 5, cin), "pair", 14),
+        "ConvMeanPool adjust_padding": (lambda: L.ConvMeanPool(c, 2 * c, adjust_padding=True), "odd", 1),
+        "UpsampleConv": (lambda: L.UpsampleConv(c, c), "half", 1),
+        "ResidualBlock down": (lambda: L.ResidualBlock(c, 2 * c, resample="down"), "x", 2),
+        "ResidualBlock dilation 2": (lambda: L.ResidualBlock(c, 2 * c, dilation=2), "x", 0),
+        "ConditionalResidualBlock batch norm": (
+            lambda: L.ConditionalResidualBlock(c, c, 5, normalization=N.ConditionalBatchNorm2d), "xy", 2),
+        "ResnetBlockDDPM": (lambda: L.ResnetBlockDDPM(F.silu, c, 2 * c, temb_dim=64), "temb", 2),
+    }
+
+
+@pytest.mark.parametrize("name", ["CRPBlock", "CondRefineBlock", "ConvMeanPool adjust_padding", "UpsampleConv",
+                                  "ResidualBlock down", "ResidualBlock dilation 2",
+                                  "ConditionalResidualBlock batch norm", "ResnetBlockDDPM"])
+def test_legacy_block_on_the_card_matches_plain_and_the_cpu(dev, name):
+    """A legacy block at 32 channels on 16 x 20: one conv3x3 launch per 3x3
+    stride-1 undilated conv (none for the dilated ones), the kernels within
+    1e-4 of the plain versions on the card, the card within 1e-3 of the
+    CPU (float32, TF32 off)."""
+    from unittest import mock
+
+    make, kind, convs = _legacy_cases()[name]
+    torch.manual_seed(7)
+    cpu = make().eval()
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(0.1 * torch.randn(p.shape))
+    gpu = make().eval().to(dev)
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn((2, 16, 20, 32), generator=g)
+    y = torch.tensor([0, 4])
+    inputs = {"x": (x,), "xy": (x, y), "odd": (x[:, :15, :19],), "half": (x[:, :8, :10],),
+              "temb": (x, torch.randn((2, 64), generator=g)),
+              "pair": ([x, torch.randn((2, 8, 10, 64), generator=g)], y, (16, 20))}[kind]
+
+    def on(d):
+        return [[t.to(d) for t in a] if isinstance(a, list) else a.to(d) if torch.is_tensor(a) else a
+                for a in inputs]
+
+    with torch.no_grad():
+        want = cpu(*inputs)
+        n0 = _build.launch_counts["conv3x3"]
+        got = gpu(*on(dev))
+        assert _build.launch_counts["conv3x3"] - n0 == convs
+        with mock.patch.object(conv3x3, "conv3x3", conv3x3.conv3x3_plain):
+            plain = gpu(*on(dev))
+    _close(got, plain, torch.float32)
+    scale = want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() <= 1e-3 * scale

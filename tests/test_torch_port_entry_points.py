@@ -11,7 +11,7 @@ import pytest
 SCRIPTS = tomllib.loads((Path(__file__).resolve().parents[1] / "pyproject.toml").read_text())["project"]["scripts"]
 PORT = {k: v for k, v in SCRIPTS.items() if k.startswith("diffsep-torch-")}
 CLIS = ["train", "separate", "serve", "evaluate", "evaluate_mp", "evaluate_covl", "merge_dnsmos", "distill",
-        "export_model"]
+        "export_model", "figures"]
 
 
 @pytest.mark.parametrize("name", sorted(PORT))
