@@ -177,7 +177,19 @@ Phases, each of which fails the run on any error:
      folder, the loader at the recipe's batch (6 rows x 3 files) on the
      native path (its counter), host ms per batch against scipy's; and
      fused_leaky_relu and get_score_fn (OUVE, OUVP; continuous and discrete)
-     card against CPU.
+     card against CPU;
+ 15. the separation learning demo (scripts/torch_port_train_demo.py: nf
+     32, ch_mult (1, 1, 2), bf16, batch 16 x 1 s at 8 kHz, its data stream
+     and seeds) trains DEMO_STEPS steps at seed 0 through the script's loop:
+     every loss finite, the mean loss of steps 201-300 below
+     DEMO_LOSS_RATIO x that of steps 1-10, DEMO_PER_STEP launches (forward,
+     backward) in every step and the same in every window of 100; then the
+     script's evaluation of the EMA weights on its 8 held-out mixtures (PC
+     N=30, ddim N=6, ddim and dpmpp at N = 4, 6, 8: 102 evaluations, each
+     DEMO_PER_STEP's forward launches; the floor 0.00 dB); every kernel
+     shape of both runs held against its plain version and timed beside
+     cuDNN and the bound, summed per step (the conv's "generic" plan apart);
+     s per step.
 
 The last lines are the `{"kernels": [...]}` summary, then
 `{"ok": true, "device": {...}}`. With --report, every result (per shape,
@@ -318,6 +330,14 @@ TP_N, TP_TOL, TOOLS_SAVE_N = 6, 1e-2, 2
 # (of scale); the figure's sampler steps
 LEGACY_NGF, LEGACY_CLASSES, LEGACY_BATCH, LEGACY_GRID = 128, 232, 2, (256, 320)
 LEGACY_SMALL, LEGACY_CPU_TOL, FIG_N = (32, (32, 40)), 1e-3, 30
+# phase 15: the separation learning demo at seed 0: its steps, and the bar on
+# its windowed mean losses (steps 201-300 against 1-10: the per-step loss is
+# noisy); its launches per step (forward, backward): conv 34 = stem + 2 x
+# 15 BigGAN blocks + 3 output-pyramid convs; FIR 6 downs (4 in blocks, 2 of
+# the input pyramid) and 6 ups, whose backward is a down for every up and an
+# up for every in-block down
+DEMO_STEPS, DEMO_LOSS_RATIO = 300, 0.7
+DEMO_PER_STEP = {"conv3x3": (34, 0), "fir_down2x": (6, 6), "fir_up2x": (6, 4)}
 # device time by kernel name fragment (torch.profiler's kernel names)
 OPTION_GROUPS = (("hand conv3x3", ("conv3x3",)), ("hand FIR", ("fir2x",)),
                  ("cuDNN convs", ("dgrad", "wgrad", "cudnn", "xmma", "implicit_convolve", "conv2d")),
@@ -3463,6 +3483,99 @@ def legacy_phase(dev, card, cycles_per_ms, tmp, run_dir, data):
     return out, dict(total)
 
 
+def demo_phase(dev, card, cycles_per_ms):
+    """Phase 15: the separation learning demo; see the module docstring.
+    Returns (report, launches over the phase's main-path runs: the training
+    steps and the evaluation)."""
+    import importlib.util
+
+    import torch
+
+    from diffsep_tpu_torch.ops import _build
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_train_demo", Path(__file__).resolve().parent / "scripts" / "torch_port_train_demo.py")
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    out = {}
+    t_phase = time.perf_counter()
+
+    # 1. training, through the script's loop (which sets the counts to 0
+    # before its first step)
+    model = demo.build_model("bfloat16", False, dev, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    run = demo.train(model, 0, DEMO_STEPS, np.random.default_rng(0), log=lambda m: log(f"[demo] {m}"))
+    counts, train_shapes = run["launches"], run["launch_shapes"]
+    want = {k: DEMO_STEPS * sum(v) for k, v in DEMO_PER_STEP.items()}
+    want_bwd = {k: DEMO_STEPS * v[1] for k, v in DEMO_PER_STEP.items() if v[1]}
+    assert counts == want, (counts, want)
+    assert run["backward_launches"] == want_bwd, (run["backward_launches"], want_bwd)
+    cumulative = [{}] + run["window_launches"]
+    windows = [dict(collections.Counter(b) - collections.Counter(a)) for a, b in zip(cumulative, cumulative[1:])]
+    assert all(w == {k: 100 * sum(v) for k, v in DEMO_PER_STEP.items()} for w in windows), windows
+    losses = run["losses"]
+    assert np.isfinite(losses).all()
+    first, last = float(losses[:10].mean()), float(losses[200:300].mean())
+    out.update(steps=DEMO_STEPS, s_per_step=run["s_per_step"], train_s=run["train_time_s"],
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, loss_first=run["loss_first"],
+               loss_mean_steps_1_10=first, loss_mean_steps_201_300=last,
+               loss_mean_every100=[float(losses[i:i + 100].mean()) for i in range(0, DEMO_STEPS, 100)],
+               launches_per_step={k: v / DEMO_STEPS for k, v in counts.items()},
+               backward_launches_per_step={k: v / DEMO_STEPS for k, v in run["backward_launches"].items()})
+    log(f"[demo] {DEMO_STEPS} steps of 16 x 1 s: {run['s_per_step'] * 1e3:.2f} ms per step after the first, "
+        f"peak {out['peak_mem_gib']:.2f} GiB; mean loss steps 1-10 {first:.4f}, 201-300 {last:.4f} "
+        f"(bar {DEMO_LOSS_RATIO} x); launches per step {out['launches_per_step']}, backward "
+        f"{out['backward_launches_per_step']}, the same in each window of 100 ({card})")
+    assert last < DEMO_LOSS_RATIO * first, (first, last)
+
+    # 2. the script's evaluation of the EMA weights on its held-out set
+    mix_te, tgt_te = demo.make_batch(np.random.default_rng(demo.HELDOUT_SEED), demo.HELDOUT_BATCH, demo.SAMPLES)
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    metrics, nfe = demo.evaluate(model, run["state"], mix_te, tgt_te)
+    torch.cuda.synchronize()
+    out["eval_s"] = time.perf_counter() - t0
+    eval_counts, eval_shapes = dict(_build.launch_counts), dict(_build.launch_shapes)
+    assert eval_counts == {k: nfe * v[0] for k, v in DEMO_PER_STEP.items()}, (eval_counts, nfe)
+    assert all(np.isfinite(v) for v in metrics.values()) and abs(metrics["si_sdr_mixture_floor_db"]) <= 0.01
+    out.update(eval_metrics=metrics, eval_nfe=nfe)
+    log(f"[demo] evaluation after {DEMO_STEPS} steps ({nfe} evaluations of 8 x 1 s, {out['eval_s']:.2f} s): "
+        f"{metrics}")
+
+    # 3. every kernel shape of both runs against its plain version, timed
+    rows = []
+    for i, key in enumerate(sorted(set(train_shapes) | set(eval_shapes), key=str)):
+        k, shape, cout = key
+        r = check_kernel(k, shape, cout, "bfloat16", dev, 1500 + i, cycles_per_ms)
+        r["launches_per_step"] = train_shapes.get(key, 0) / DEMO_STEPS
+        r["launches_per_eval"] = eval_shapes.get(key, 0) / nfe
+        rows.append(r)
+        log(f"[demo] {k} {shape}->{cout} x{r['launches_per_step']:g}/step x{r['launches_per_eval']:g}/eval:"
+            f"{plan_text(r['plan'])} err {r['max_abs_err']:.3g} (tol {r['tol']:.3g}) ms {r['ms']:.4f} "
+            f"plain {r['plain_ms']:.4f} lib {r['library_ms']:.4f} ms/lib {r['ms_per_library_ms']:.3g} "
+            f"bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
+    out["kernel_checks"] = rows
+    bad = [r for r in rows if not r["ok"]]
+    assert not bad, f"kernel mismatches at the demo's shapes: {bad}"
+
+    def per_step(sel):
+        chosen = [r for r in rows if sel(r) and r["launches_per_step"]]
+        return {key: sum(r[key] * r["launches_per_step"] for r in chosen)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+
+    out["ms_per_step"] = {k: per_step(lambda r, k=k: r["kernel"] == k) for k in KERNELS}
+    out["ms_per_step"]["conv3x3 generic plan"] = per_step(
+        lambda r: r["kernel"] == "conv3x3" and r["plan"]["variant"] == "generic")
+    for k, v in out["ms_per_step"].items():
+        log(f"[demo] {k} per training step (forward and backward launches): {v['ms']:.4f} ms, plain "
+            f"{v['plain_ms']:.4f}, cuDNN {v['library_ms']:.4f}, bound {v['bound_ms']:.4f} ({card})")
+    total = collections.Counter(counts)
+    total.update(eval_counts)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[demo] {len(rows)} kernel shapes held; phase 15 took {out['seconds']:.1f} s; launches {dict(total)}")
+    return out, dict(total)
+
+
 def ptxas_lines(text):
     """nvcc's -Xptxas -v report, one instantiation at a time: its kernel (the
     mangled template arguments shortened) beside its register and spill lines."""
@@ -3728,6 +3841,8 @@ def main() -> int:
         # 14. the legacy blocks, the figures CLI, the native decoder
         report["legacy"], legacy_counts = legacy_phase(dev, card, cycles_per_ms, tmp, train["run_dir"],
                                                        Path(tmp) / "wsj0_mix")
+    # 15. the separation learning demo
+    report["demo"], demo_counts = demo_phase(dev, card, cycles_per_ms)
 
     # summary per kernel: the bf16 (serving) times summed over one score
     # evaluation's launches at batch 2 (the same in float32 apart, with the
@@ -3751,6 +3866,7 @@ def main() -> int:
         option_rows = [r for r in report["options"]["kernel_checks"] if r["kernel"] == k]
         slice12_rows = [r for r in report["slice12"]["kernel_checks"] if r["kernel"] == k]
         legacy_rows = [r for r in report["legacy"]["kernel_checks"] if r["kernel"] == k]
+        demo_rows = [r for r in report["demo"]["kernel_checks"] if r["kernel"] == k]
         figure_counts = report["legacy"]["reverse_diffusion_example"]["launches"]
         if k == "fir_up2x":  # the down's backward at odd sizes runs the up kernel
             enh_rows += report["enhance"]["odd_fir_backward"]
@@ -3766,9 +3882,10 @@ def main() -> int:
         summary.append(dict(
             name=k, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=(serve_counts[k] + train["launches"][k] + entry_counts[k] + enh_counts[k] + dist_counts[k]
-                      + ddp_counts[k] + option_counts[k] + slice12_counts[k] + legacy_counts.get(k, 0)),
+                      + ddp_counts[k] + option_counts[k] + slice12_counts[k] + legacy_counts.get(k, 0)
+                      + demo_counts[k]),
             max_abs_err=max(r["max_abs_err"] for r in rows + tr + entry_rows + enh_rows + dist_rows + ddp_rows
-                            + option_rows + slice12_rows + legacy_rows),
+                            + option_rows + slice12_rows + legacy_rows + demo_rows),
             ms=per_eval_sum("ms"), plain_ms=per_eval_sum("plain_ms"),
             bound_ms=per_eval_sum("bound_ms"),
             bound_by="operations" if per_eval_sum("ops_ms") >= per_eval_sum("bytes_ms") else "bytes",
@@ -3782,7 +3899,10 @@ def main() -> int:
                               "NCSN++ options (phase 12)": option_counts[k],
                               "fsdp, tp=2, three speakers, tools (phase 13)": slice12_counts[k],
                               "legacy blocks (phase 14)": legacy_counts.get(k, 0) - figure_counts[k],
-                              "figures reverse_diffusion_example (phase 14)": figure_counts[k]},
+                              "figures reverse_diffusion_example (phase 14)": figure_counts[k],
+                              "learning demo, training and evaluation (phase 15)": demo_counts[k]},
+            launches_per_demo_step={"forward": DEMO_PER_STEP[k][0], "backward": DEMO_PER_STEP[k][1]},
+            demo_ms_per_step=report["demo"]["ms_per_step"][k],
             launches_per_legacy_set_ngf128=sum(r["launches_per_legacy_set"] for r in legacy_rows),
             legacy_f32_per_set={key: sum(r[key] * r["launches_per_legacy_set"] for r in legacy_rows)
                                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")},

@@ -220,7 +220,12 @@ class DiffSepModel(nn.Module):
             trainer_cfg = config.get("trainer") or {}
             config = config["model"]
         # the flagship's defaults are NCSN++'s: none of them reaches DiffuSE
-        self.config = merge_config({} if is_diffuse(config) else FLAGSHIP, config)
+        base = {} if is_diffuse(config) else FLAGSHIP
+        if self.run_config is not None:
+            # a composed tree without init_hack_p takes the JAX package's
+            # 1 / N, not the ICASSP recipe's 0.1
+            base = {k: v for k, v in base.items() if k != "init_hack_p"}
+        self.config = merge_config(base, config)
         cfg = self.config
         self.score_model = build_score_model(cfg)
         self.score_model.backbone.reset_parameters(torch.Generator().manual_seed(seed))

@@ -1,0 +1,391 @@
+#!/usr/bin/env python3
+"""The separation learning check of the PyTorch/CUDA port: the learning demo
+on synthetic separable mixtures, trained and sampled by diffsep_tpu_torch.
+
+A small NCSN++ (nf 32, ch_mult (1, 1, 2), one res block, attention at 64,
+bf16 compute, f32 parameters) learns the score of mixtures of two spectrally
+disjoint sources (low-band against high-band filtered noise, made from a
+seed) for ``steps`` Adam steps at batch 16 x 1 s, 8 kHz. Its EMA weights then
+separate 8 held-out mixtures with the PC sampler (reverse_diffusion + ald2,
+N=30), ddim N=6 and the ddim/dpmpp sweep at N = 4, 6, 8, each scored by
+SI-SDR against the unprocessed-mixture floor. A working port clearly beats
+the floor: this checks the whole loop (loss -> optimizer -> EMA -> sampler)
+and both hand kernels with real gradient descent, not shapes.
+
+    python scripts/torch_port_train_demo.py [steps] [--seed S]
+        [--dtype bfloat16|float32] [--remat] [--out PATH] [--save-ckpt PATH]
+        [--device cpu] [--tiny]
+    python scripts/torch_port_train_demo.py 10000 --seeds 0,1,2 [--out-dir DIR]
+
+Seeds: the data stream is numpy's ``default_rng(seed)``, draw for draw that
+of the JAX package's scripts/train_demo.py; the weights are drawn from
+``seed`` and the training step's draws from ``1000 * seed + 1`` (the JAX
+script's PRNGKey(seed) and PRNGKey(1000 * seed + 1): threefry's draws
+themselves cannot be reproduced in torch). The held-out set
+(``default_rng(123)``) and the sampler's generator (seeded 7) are the same
+for every seed, so the spread over seeds measures training variance on one
+test protocol. The record has every key of scripts/train_demo_result.json,
+plus the card, seconds and hand-kernel launches per step.
+
+``--seeds`` runs each seed in a process of its own, all at once (one card
+each where there are several, else sharing the one: training is host-bound),
+writes DIR/torch_port_train_demo_seed{S}.json, then
+DIR/torch_port_train_demo_spread.json: every si_sdr_* metric (and the
+dpmpp-minus-ddim differences) as {mean, min, max, spread, values} over the
+seeds, as scripts/seed_spread.py aggregates the JAX package's records, with
+the bar of ``BAR`` checked.
+
+``--tiny`` rehearses on the CPU: nf 8, batch 2 x 2000 samples, 2 held-out
+mixtures of 2000 samples. Without ``--device`` the demo runs on the card,
+and raises where there is none.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parents[1]
+if str(REPO) not in sys.path:
+    sys.path.insert(0, str(REPO))
+
+FS, SAMPLES, BATCH, NF = 8000, 8000, 16, 32
+HELDOUT_SEED, HELDOUT_BATCH, EVAL_SEED = 123, 8, 7
+TINY = {"nf": 8, "batch": 2, "samples": 2000, "heldout": 2}
+PC_N, FAST_N, SWEEP = 30, 6, (("ddim", "dpmpp"), (4, 6, 8))
+# the JAX package's three seeds at 10000 steps (scripts/train_demo_spread.json):
+# PC N=30 25.83-26.05 dB (mean 25.92), ddim N=6 from 15.99, the floor 0.00
+BAR = {"si_sdr_separated_db": {"each": 24.8, "mean": 24.9},
+       "si_sdr_ddim_n6_db": {"each": 15.0},
+       "si_sdr_mixture_floor_db": {"abs": 0.01}}
+
+
+def make_batch(rng, b, n, fs=FS):
+    """Source 1: low-band noise; source 2: high-band noise. A copy of
+    scripts/train_demo.py:make_batch: the same draws give the same arrays,
+    bit for bit."""
+    from scipy.signal import butter, lfilter
+
+    lo_b, lo_a = butter(4, 500 / (fs / 2), "low")
+    hi_b, hi_a = butter(4, 1500 / (fs / 2), "high")
+    s1 = lfilter(lo_b, lo_a, rng.standard_normal((b, n)), axis=-1)
+    s2 = lfilter(hi_b, hi_a, rng.standard_normal((b, n)), axis=-1)
+    # distinct powers make the (non-PIT) power-ordered target well defined
+    s1 = s1 / np.std(s1, axis=-1, keepdims=True) * 0.13
+    s2 = s2 / np.std(s2, axis=-1, keepdims=True) * 0.07
+    tgt = np.stack([s1, s2], axis=1).astype(np.float32)
+    return tgt.sum(axis=1, keepdims=True), tgt
+
+
+def demo_overrides(dtype="bfloat16", remat=False, nf=NF):
+    """The JAX script's overrides of the default config."""
+    return [
+        f"model.score_model.backbone_args.nf={nf}",
+        "model.score_model.backbone_args.ch_mult=[1,1,2]",
+        "model.score_model.backbone_args.num_res_blocks=1",
+        "model.score_model.backbone_args.attn_resolutions=[64]",
+        f"model.score_model.backbone_args.dtype={dtype}",
+        f"model.score_model.backbone_args.remat={str(remat).lower()}",
+        "model.train_source_order=power",
+        "model.optimizer.lr=0.001",
+        "trainer.accumulate_grad_batches=1",
+    ]
+
+
+def build_model(dtype="bfloat16", remat=False, device=None, seed=0, nf=NF):
+    from diffsep_tpu_torch.config.compose import compose
+    from diffsep_tpu_torch.model import DiffSepModel
+
+    return DiffSepModel(compose(demo_overrides(dtype, remat, nf)), device=device, seed=seed)
+
+
+def train(model, seed, steps, rng, b=BATCH, n=SAMPLES, log=print, draws=None):
+    """``steps`` train steps on batches of ``make_batch(rng, b, n)``, after
+    the one batch the JAX script draws for its init example. The host waits
+    for the card only where the JAX script does: at step 0 and every 100
+    steps. ``draws(i)``, where given, hands step i's loss its draws (see
+    ``losses.Draws``). Returns the train state, every step's loss, and the
+    hand kernels' launches over the steps (cumulative at every 100th)."""
+    import torch
+
+    from diffsep_tpu_torch.ops import _build
+    from diffsep_tpu_torch.train.loop import to_device
+
+    dev = model.device
+    make_batch(rng, b, n)  # the JAX script's init example: keeps the data stream aligned
+    state = model.init_state()
+    step_fn = model.make_train_step(1000 * seed + 1)
+    losses = torch.empty(steps, device=dev)
+    curve, windows = [], []
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        mix, tgt = make_batch(rng, b, n)
+        metrics = step_fn(state, to_device(mix, dev), to_device(tgt, dev),
+                          draws=None if draws is None else draws(i))
+        losses[i] = metrics["train/score_loss"]
+        if i == 0:
+            loss0 = losses[0].item()
+            t1 = time.perf_counter()
+        if (i + 1) % 100 == 0:
+            loss = losses[i].item()
+            curve.append(round(loss, 4))
+            windows.append(dict(_build.launch_counts))
+            log(f"step {i + 1}: loss {loss:.4f}")
+    losses = losses.cpu().numpy()
+    t_end = time.perf_counter()
+    counts = dict(_build.launch_counts)
+    return {
+        "state": state, "losses": losses, "loss_first": loss0, "loss_final": float(losses[-1]),
+        "loss_curve_every100": curve, "train_time_s": t_end - t0,
+        # after step 0, which builds the kernels and warms the allocator
+        "s_per_step": (t_end - t1) / (steps - 1) if steps > 1 else t_end - t0,
+        "launches": counts, "backward_launches": dict(_build.backward_counts),
+        "launch_shapes": dict(_build.launch_shapes), "window_launches": windows,
+    }
+
+
+def evaluate(model, state, mix_te, tgt_te, noise=None):
+    """SI-SDR (dB) of the EMA weights' separations of the held-out set with
+    each sampler, each drawing from a generator seeded EVAL_SEED (the JAX
+    script's PRNGKey(7) for every sampler), and of the mixture floor.
+    ``noise(sampler_kwargs)``, where given, hands each sampler its draws.
+    Returns (metrics, score evaluations)."""
+    import torch
+
+    from diffsep_tpu_torch.models.losses import SISDRLoss
+    from diffsep_tpu_torch.train.ema import swapped
+
+    metric = SISDRLoss(zero_mean=True, clamp_db=30, reduction="mean", sign_flip=True)
+    dev = model.device
+    mix = torch.from_numpy(mix_te).to(dev)
+    tgt = torch.from_numpy(tgt_te).to(dev)
+    nfe_total = 0
+
+    def si_sdr(**kw):
+        nonlocal nfe_total
+        gen = torch.Generator(device=dev).manual_seed(EVAL_SEED)
+        est, nfe = model.separate(mix, generator=gen, noise=None if noise is None else noise(kw), **kw)
+        nfe_total += nfe
+        return float(metric(est.float(), tgt))
+
+    with swapped(state.ema, state.params):
+        sep = si_sdr(N=PC_N)
+        fast = si_sdr(predictor_name="ddim", corrector_name="none", N=FAST_N)
+        sweep = {f"si_sdr_{pred}_n{k}_db": round(si_sdr(predictor_name=pred, corrector_name="none", N=k), 2)
+                 for pred in SWEEP[0] for k in SWEEP[1]}
+    floor = float(metric(mix.expand_as(tgt), tgt))
+    return {
+        "si_sdr_mixture_floor_db": round(floor, 2),
+        "si_sdr_separated_db": round(sep, 2),
+        "si_sdr_ddim_n6_db": round(fast, 2),
+        "improvement_db": round(sep - floor, 2),
+        **sweep,
+    }, nfe_total
+
+
+def card_name(device):
+    """The card's name and power limit as nvidia-smi gives them; None off
+    the card."""
+    if device.type != "cuda":
+        return None
+    import torch
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+def run_seed(steps, seed, dtype="bfloat16", remat=False, device=None, tiny=False, log=print):
+    """One seed's training and evaluation. Returns (record, model, state)."""
+    import torch
+
+    sizes = TINY if tiny else {"nf": NF, "batch": BATCH, "samples": SAMPLES, "heldout": HELDOUT_BATCH}
+    model = build_model(dtype, remat, device, seed, nf=sizes["nf"])
+    dev = model.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    run = train(model, seed, steps, np.random.default_rng(seed), sizes["batch"], sizes["samples"], log=log)
+    mix_te, tgt_te = make_batch(np.random.default_rng(HELDOUT_SEED), sizes["heldout"], sizes["samples"])
+    t0 = time.perf_counter()
+    metrics, nfe = evaluate(model, run["state"], mix_te, tgt_te)
+    eval_s = time.perf_counter() - t0
+    losses = run["losses"]
+    record = {
+        "steps": steps,
+        "seed": seed,
+        "dtype": dtype,
+        "remat": bool(remat),
+        "loss_curve_every100": run["loss_curve_every100"],
+        "train_time_s": round(run["train_time_s"], 1),
+        "loss_first": round(run["loss_first"], 4),
+        "loss_final": round(run["loss_final"], 4),
+        **metrics,
+        # per-step losses are noisy (the JAX curve reads 0.49, 0.65, 0.16
+        # at steps 100-300): learning is judged on windowed means
+        "loss_mean_every100": [round(float(losses[i:i + 100].mean()), 4) for i in range(0, steps - 99, 100)],
+        "s_per_step": run["s_per_step"],
+        "launches_per_step": {k: v / steps for k, v in sorted(run["launches"].items())},
+        "eval_nfe": nfe,
+        "eval_s": eval_s,
+        "device": str(dev),
+        "card": card_name(dev),
+        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None,
+    }
+    if tiny:
+        record["tiny"] = TINY
+    return record, model, run["state"]
+
+
+def save_teacher(path, model, state, record):
+    """The EMA weights as the port's weights file (``cli.loading.load_model``
+    reads it) and a provenance sidecar beside it, the JAX script's."""
+    from diffsep_tpu_torch.config.compose import to_dict
+    from diffsep_tpu_torch.train.checkpoints import atomic_save
+    from diffsep_tpu_torch.train.ema import swapped
+
+    path = Path(path)
+    with swapped(state.ema, state.params):
+        weights = {k: v.detach().cpu().clone() for k, v in model.score_model.state_dict().items()}
+    atomic_save({"state_dict": weights, "config": to_dict(model.run_config)}, path)
+    path.with_suffix(".json").write_text(json.dumps({
+        "teacher_steps": record["steps"], "teacher_train_time_s": record["train_time_s"], "seed": record["seed"],
+    }))
+
+
+def add_derived_deltas(rec):
+    """dpmpp against ddim at each budget, within one seed (a copy of the
+    sampler half of scripts/seed_spread.py:add_derived_deltas)."""
+    out = dict(rec)
+    for n in SWEEP[1]:
+        a, b = f"si_sdr_dpmpp_n{n}_db", f"si_sdr_ddim_n{n}_db"
+        if a in rec and b in rec:
+            out[f"si_sdr_delta_dpmpp_minus_ddim_n{n}_db"] = round(rec[a] - rec[b], 2)
+    return out
+
+
+def aggregate(records, keep_keys):
+    """Per-key {mean, min, max, spread, values} over the seed records (a
+    copy of scripts/seed_spread.py:aggregate). spread = max - min: with 3
+    seeds a standard deviation would be noise on noise."""
+    out = {"seeds": [r.get("seed") for r in records], "n_seeds": len(records)}
+    keys = sorted(
+        k
+        for k in records[0]
+        if keep_keys(k)
+        and all(isinstance(r.get(k), (int, float)) for r in records)
+    )
+    for k in keys:
+        vals = [float(r[k]) for r in records]
+        out[k] = {
+            "mean": round(sum(vals) / len(vals), 2),
+            "min": round(min(vals), 2),
+            "max": round(max(vals), 2),
+            "spread": round(max(vals) - min(vals), 2),
+            "values": [round(v, 2) for v in vals],
+        }
+    return out
+
+
+def check_bar(agg):
+    """Each metric of ``BAR`` against the aggregate: {metric: met}."""
+    met = {}
+    for key, bar in BAR.items():
+        a = agg[key]
+        ok = True
+        if "each" in bar:
+            ok &= a["min"] >= bar["each"]
+        if "mean" in bar:
+            ok &= a["mean"] >= bar["mean"]
+        if "abs" in bar:
+            ok &= max(abs(a["min"]), abs(a["max"])) <= bar["abs"]
+        met[key] = bool(ok)
+    return met
+
+
+def spread_record(records, steps):
+    agg = aggregate([add_derived_deltas(r) for r in records], lambda k: k.startswith("si_sdr_"))
+    agg["train_steps"] = steps
+    agg["card"] = [r["card"] for r in records]
+    agg["s_per_step"] = [r["s_per_step"] for r in records]
+    agg["launches_per_step"] = records[0]["launches_per_step"]
+    agg["bar"] = BAR
+    agg["bar_met"] = check_bar(agg)
+    return agg
+
+
+def run_seeds(args, seeds):
+    """Every seed in a process of its own, all at once; then the spread."""
+    import torch
+
+    out_dir = Path(args.out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cards = torch.cuda.device_count() if args.device is None else 0
+    procs = []
+    try:
+        for i, seed in enumerate(seeds):
+            out = out_dir / f"torch_port_train_demo_seed{seed}.json"
+            cmd = [sys.executable, str(Path(__file__).resolve()), str(args.steps), "--seed", str(seed),
+                   "--dtype", args.dtype, "--out", str(out)]
+            cmd += ["--remat"] * args.remat + ["--tiny"] * args.tiny
+            device = args.device or (f"cuda:{i % cards}" if cards > 1 else None)
+            cmd += ["--device", device] if device else []
+            procs.append((seed, out, subprocess.Popen(cmd)))
+        failed = [seed for seed, _, p in procs if p.wait() != 0]
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed:
+        raise SystemExit(f"seeds {failed} failed")
+    records = [json.loads(out.read_text()) for _, out, _ in procs]
+    agg = spread_record(records, args.steps)
+    (out_dir / "torch_port_train_demo_spread.json").write_text(json.dumps(agg, indent=2))
+    print(json.dumps(agg), flush=True)
+    return agg
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("steps", nargs="?", type=int, default=2000)
+    ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="training seed: the data stream, the init and the step's draws; the held-out set "
+                    "and the sampler's generator stay fixed")
+    ap.add_argument("--seeds", default=None, help="comma-separated seeds, each run in a process of its own")
+    ap.add_argument("--out", default="torch_port_train_demo_result.json", help="the record of one seed")
+    ap.add_argument("--out-dir", default=str(Path(__file__).resolve().parent),
+                    help="where --seeds writes its records")
+    ap.add_argument("--save-ckpt", default=None,
+                    help="write the trained EMA weights here (the port's weights file) and a provenance "
+                    "sidecar beside it")
+    ap.add_argument("--device", default=None, help="cpu, cuda or cuda:N (default: the card)")
+    ap.add_argument("--tiny", action="store_true", help="a CPU rehearsal at nf 8, batch 2 x 2000 samples")
+    args = ap.parse_args(argv)
+    if args.seeds:
+        run_seeds(args, [int(s) for s in args.seeds.split(",")])
+        return 0
+
+    def log(msg):
+        print(f"[seed {args.seed}] {msg}", flush=True)
+
+    record, model, state = run_seed(args.steps, args.seed, args.dtype, args.remat, args.device, args.tiny, log)
+    print(json.dumps(record), flush=True)
+    Path(args.out).write_text(json.dumps(record, indent=2))
+    if args.save_ckpt:
+        save_teacher(args.save_ckpt, model, state, record)
+        log(f"teacher saved to {args.save_ckpt}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

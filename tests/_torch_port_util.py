@@ -6,6 +6,12 @@ diffsep_tpu_torch, on the CPU, in float32.
 """
 from __future__ import annotations
 
+import importlib.util
+import os
+import sys
+from pathlib import Path
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,6 +43,21 @@ JAX_TINY_OVERRIDES = [
     "model.score_model.stft_args.n_fft=126",
     "model.score_model.stft_args.hop_length=32",
 ]
+SCRIPTS = Path(__file__).resolve().parents[1] / "scripts"
+
+
+def load_script(name: str):
+    """``scripts/<name>.py`` as a module, loaded by path. The JAX package's
+    demo scripts enable JAX's compile cache when imported: it stays off
+    (DIFFSEP_CACHE_DIR=0), so that loading one writes nothing."""
+    spec = importlib.util.spec_from_file_location(name, SCRIPTS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    with mock.patch.dict(os.environ, {"DIFFSEP_CACHE_DIR": "0"}):
+        spec.loader.exec_module(mod)
+    return mod
+
+
 PORT_TINY_CONFIG = {
     "score_model": {
         "stft_args": TINY_STFT,
