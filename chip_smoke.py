@@ -186,10 +186,13 @@ Phases, each of which fails the run on any error:
      backward) in every step and the same in every window of 100; then the
      script's evaluation of the EMA weights on its 8 held-out mixtures (PC
      N=30, ddim N=6, ddim and dpmpp at N = 4, 6, 8: 102 evaluations, each
-     DEMO_PER_STEP's forward launches; the floor 0.00 dB); every kernel
+     DEMO_PER_STEP's forward launches; the floor 0.00 dB); every conv
+     launch of the training that reads 32 or 96 channels ran the
+     "slice32" plan (counted by plan); every kernel
      shape of both runs held against its plain version and timed beside
-     cuDNN and the bound, summed per step (the conv's "generic" plan apart);
-     s per step.
+     cuDNN and the bound (each shape's share of it logged), summed per step
+     by kernel, by conv plan and by input channels (the stem, Cin 32 and 96,
+     both); s per step.
 
 The last lines are the `{"kernels": [...]}` summary, then
 `{"ok": true, "device": {...}}`. With --report, every result (per shape,
@@ -3506,6 +3509,7 @@ def demo_phase(dev, card, cycles_per_ms):
     torch.cuda.reset_peak_memory_stats()
     run = demo.train(model, 0, DEMO_STEPS, np.random.default_rng(0), log=lambda m: log(f"[demo] {m}"))
     counts, train_shapes = run["launches"], run["launch_shapes"]
+    train_plans = {plan: n for (k, plan), n in _build.launch_plans.items() if k == "conv3x3"}
     want = {k: DEMO_STEPS * sum(v) for k, v in DEMO_PER_STEP.items()}
     want_bwd = {k: DEMO_STEPS * v[1] for k, v in DEMO_PER_STEP.items() if v[1]}
     assert counts == want, (counts, want)
@@ -3527,6 +3531,11 @@ def demo_phase(dev, card, cycles_per_ms):
         f"(bar {DEMO_LOSS_RATIO} x); launches per step {out['launches_per_step']}, backward "
         f"{out['backward_launches_per_step']}, the same in each window of 100 ({card})")
     assert last < DEMO_LOSS_RATIO * first, (first, last)
+    # every conv reading 32 or 96 channels ran the "slice32" plan
+    c32 = sum(n for (k, shape, _), n in train_shapes.items() if k == "conv3x3" and c32_channels(shape[3]))
+    out["conv_launches_per_step_by_plan"] = {plan: n / DEMO_STEPS for plan, n in sorted(train_plans.items())}
+    log(f"[demo] conv3x3 launches per step by plan: {out['conv_launches_per_step_by_plan']}")
+    assert c32 and train_plans.get("slice32", 0) == c32, (train_plans, c32)
 
     # 2. the script's evaluation of the EMA weights on its held-out set
     mix_te, tgt_te = demo.make_batch(np.random.default_rng(demo.HELDOUT_SEED), demo.HELDOUT_BATCH, demo.SAMPLES)
@@ -3550,10 +3559,11 @@ def demo_phase(dev, card, cycles_per_ms):
         r["launches_per_step"] = train_shapes.get(key, 0) / DEMO_STEPS
         r["launches_per_eval"] = eval_shapes.get(key, 0) / nfe
         rows.append(r)
+        r["bound_share"] = r["bound_ms"] / r["ms"]
         log(f"[demo] {k} {shape}->{cout} x{r['launches_per_step']:g}/step x{r['launches_per_eval']:g}/eval:"
             f"{plan_text(r['plan'])} err {r['max_abs_err']:.3g} (tol {r['tol']:.3g}) ms {r['ms']:.4f} "
             f"plain {r['plain_ms']:.4f} lib {r['library_ms']:.4f} ms/lib {r['ms_per_library_ms']:.3g} "
-            f"bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
+            f"bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}, {100 * r['bound_share']:.1f}% of it)")
     out["kernel_checks"] = rows
     bad = [r for r in rows if not r["ok"]]
     assert not bad, f"kernel mismatches at the demo's shapes: {bad}"
@@ -3564,16 +3574,30 @@ def demo_phase(dev, card, cycles_per_ms):
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
 
     out["ms_per_step"] = {k: per_step(lambda r, k=k: r["kernel"] == k) for k in KERNELS}
-    out["ms_per_step"]["conv3x3 generic plan"] = per_step(
-        lambda r: r["kernel"] == "conv3x3" and r["plan"]["variant"] == "generic")
+    # by plan, and by shape: the stem (Cin 6) and the Cin 32 and 96 convs,
+    # apart and together (the 20 launches that the generic kernel ran before "slice32")
+    for plan in sorted({r["plan"]["variant"] for r in rows if r["kernel"] == "conv3x3"}):
+        out["ms_per_step"][f"conv3x3 {plan} plan"] = per_step(
+            lambda r, plan=plan: r["kernel"] == "conv3x3" and r["plan"]["variant"] == plan)
+    for label, sel in (("conv3x3 at Cin 6 (the stem)", lambda c: c == 6),
+                       ("conv3x3 at Cin 32 and 96", c32_channels),
+                       ("conv3x3 at Cin 6, 32 and 96", lambda c: c == 6 or c32_channels(c))):
+        out["ms_per_step"][label] = per_step(lambda r, sel=sel: r["kernel"] == "conv3x3" and sel(r["shape"][3]))
+    out["ms_per_step"] = {k: v for k, v in out["ms_per_step"].items() if v["ms"]}  # plans the step ran
     for k, v in out["ms_per_step"].items():
         log(f"[demo] {k} per training step (forward and backward launches): {v['ms']:.4f} ms, plain "
-            f"{v['plain_ms']:.4f}, cuDNN {v['library_ms']:.4f}, bound {v['bound_ms']:.4f} ({card})")
+            f"{v['plain_ms']:.4f}, cuDNN {v['library_ms']:.4f}, bound {v['bound_ms']:.4f} "
+            f"({100 * v['bound_ms'] / v['ms']:.1f}% of it; {card})")
     total = collections.Counter(counts)
     total.update(eval_counts)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[demo] {len(rows)} kernel shapes held; phase 15 took {out['seconds']:.1f} s; launches {dict(total)}")
     return out, dict(total)
+
+
+def c32_channels(cin):
+    """Input channels that the bf16 conv runs on 32-channel K slices."""
+    return cin % 32 == 0 and cin % 64 != 0
 
 
 def ptxas_lines(text):
@@ -3902,6 +3926,8 @@ def main() -> int:
                               "figures reverse_diffusion_example (phase 14)": figure_counts[k],
                               "learning demo, training and evaluation (phase 15)": demo_counts[k]},
             launches_per_demo_step={"forward": DEMO_PER_STEP[k][0], "backward": DEMO_PER_STEP[k][1]},
+            demo_launches_per_step_by_plan=report["demo"]["conv_launches_per_step_by_plan"] if k == "conv3x3"
+            else None,
             demo_ms_per_step=report["demo"]["ms_per_step"][k],
             launches_per_legacy_set_ngf128=sum(r["launches_per_legacy_set"] for r in legacy_rows),
             legacy_f32_per_set={key: sum(r[key] * r["launches_per_legacy_set"] for r in legacy_rows)

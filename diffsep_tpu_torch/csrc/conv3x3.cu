@@ -13,17 +13,18 @@
 // What bounds it on the H100: operations. At the NCSN++ shapes (Cin, Cout
 // 128-512) a pixel's 9 * Cin * Cout multiply-adds are ~200-600 per byte of
 // activation moved, above the card's ~295 FLOP/byte balance point for bf16,
-// so the tensor cores, not HBM, set the floor; only the stem (Cin = 6) and
-// the output convs (Cout = 6) are bound by bytes.
+// so the tensor cores, not HBM, set the floor; the stem (Cin = 6), the
+// output convs (Cout = 6) and the narrow models' 32 and 96 channels (nf 32)
+// are bound by bytes.
 //
 // The bf16 designs, chosen per shape by ops/conv3x3.py:plan_conv3x3 and
-// dispatched here by (variant, BM, BN, stages). All walk K as (tap,
-// 64-channel slice), so one A row of a slice is 64 contiguous channels of
-// one neighbour pixel (128 bytes), and multiply with wgmma (m64nBNk16) from
-// operands in the 128-byte swizzle (the weight MN-major through the
-// transpose flag, or K-major in the narrow kernels' resident copy), f32
-// accumulators in registers; the epilogue adds the bias and rounds once to
-// bf16 from registers.
+// dispatched here by (variant, BM, BN, stages). Those of Cin % 64 == 0
+// (1-3) walk K as (tap, 64-channel slice), so one A row of a slice is 64
+// contiguous channels of one neighbour pixel (128 bytes), and multiply with
+// wgmma (m64nBNk16) from operands in the 128-byte swizzle (the weight
+// MN-major through the transpose flag, or K-major in the narrow kernels'
+// resident copy), f32 accumulators in registers; the epilogue adds the
+// bias and rounds once to bf16 from registers.
 //
 // 1. "tma" (Cin % 64 == 0, Cout % 128 == 0, from 512 output pixels up where
 //    the patches waste little: the levels from 32 x 40 up). The tile is a
@@ -63,6 +64,16 @@
 //    block takes from L2 (its A rows nine times, the split weight's hi and
 //    lo once), which 192-row tiles spread over more rows.
 //
+// 5. "slice32" (bf16, Cin % 32 == 0 and Cin % 64 != 0: the learning
+//    demos' nf 32 NCSN++; Cout a multiple of 32, or < 64). Bound by bytes.
+//    K walks (tap, 32-channel slice), rows of 64 bytes in the 64-byte
+//    swizzle; the block's Cout tile of the weight stays in shared memory;
+//    persistent blocks walk patches of 8 x 16 or 16 x 16 output pixels, fed
+//    by TMA (one box per slice and column offset, serving three taps as
+//    wgmma operands in shared memory), each consumer warpgroup taking whole
+//    patches from a ring of its own; the output leaves by TMA stores. See
+//    conv3x3_slice32_kernel.
+//
 // Split-K (grid z = S > 1, "tma", "wgmma", "narrow" and "tf32x3") serves the
 // deep levels, where M-tiles x N-tiles is far below the 132 SMs: split z
 // walks its own range of the (tap, slice) walk and writes an f32 partial
@@ -71,8 +82,9 @@
 // so the result is bitwise deterministic.
 //
 // "generic" (f32 outside "tf32x3": Cin = 6, Cout = 6, other channel counts;
-// bf16 with Cin % 64 != 0 as the stem's Cin = 6; operands not 16-byte
-// aligned): each block computes a 64 x 64 output tile
+// bf16 with Cin not a multiple of 32, as the stem's Cin = 6, or with Cout
+// >= 64 off the N tiles; operands not 16-byte aligned): each block computes
+// a 64 x 64 output tile
 // and walks K in slices of 32, gathering A straight from the unpadded input
 // with predicated loads (no padded copy). bf16 runs on the tensor cores
 // through WMMA (16x16x16 mma.sync tiles, four warps of 2x2 tiles each); f32
@@ -700,6 +712,238 @@ conv3x3_tma_narrow_kernel(const __grid_constant__ CUtensorMap x_map, const bf16*
 }
 
 // ---------------------------------------------------------------------------
+// bf16 with 32-channel K slices: "slice32" (Cin % 32 == 0, Cin % 64 != 0:
+// 32, 96, 160, ...). Bound by bytes: at Cin = Cout = 32 a pixel's
+// 9 * 32 * 32 multiply-adds are ~144 FLOP per byte moved, below the card's
+// ~295. So each input pixel crosses from HBM once and each output once, and
+// A is read from L2 as few times as the route allows.
+//
+// K is walked as (tap, 32-channel slice): a row of a slice is one pixel's 32
+// channels, 64 bytes, in the 64-byte swizzle. A tile is a patch of PH = 8 MW
+// rows x TMA_W = 16 columns of output pixels of one image (128 MW GEMM rows)
+// x BN output channels, BN = 32 (Cout % 32 == 0) or 8 (the output convs,
+// Cout < 64; columns past Cout are not stored), so A is read once per Cout
+// tile and not once per 8 output columns. Each block makes its BN columns
+// of the weight (9 Cin x BN, K-major, 64-byte swizzle, zero past Cout)
+// resident in shared memory once, then walks patches blockIdx.x, blockIdx.x
+// + gridDim.x, ... (one block per SM; the planner sets the grid). Warpgroup
+// 0 is the producer: one thread issues the input's TMA boxes (SWIZZLE_64B, zero
+// fill past the image: the SAME padding) into two rings of STAGES / 2
+// buffers, each with a `full` and an `empty` mbarrier; the rings run on
+// across patches, so the producer loads the next patch while the consumers
+// store this one. Warpgroups 1 and 2 take the block's patches in turn, each
+// a whole patch (2 MW m64 blocks) from its own ring, so that one's loads,
+// products and stores overlap the other's instead of running in lockstep
+// (one ring shared by both would let one warpgroup wait on a barrier a
+// phase ahead of the other's, which its parity cannot tell apart). A
+// warpgroup releases a buffer once the wgmma that read it has completed.
+// Its epilogue adds the bias and rounds once to bf16 in registers, writes
+// the pairs into the warpgroup's output tile in shared memory (swizzled, so
+// without bank conflicts), and one thread writes the tile out with a TMA
+// store (clipped at the image's edge) while the warpgroup goes on to its
+// next patch. (An epilogue that stored 16-byte vectors from registers,
+// after an exchange within each lane quad, spent longer in its shuffles
+// and selects than the loads took.) BN = 8 stores 2-byte values from
+// registers: a row of Cout = 6 is 12 bytes, which TMA cannot address.
+//
+// A reaches the tensor cores as one box of (PH + 2) x 16 pixels per (slice,
+// dx). A tap shifted by dy reads the box's rows moved by 16 dy pixels, 1024
+// bytes, which keeps the swizzle's phase, so one box serves the three taps
+// dy = -1, 0, 1 as wgmma operands straight from shared memory: A crosses
+// from L2 three times. (A halo box of (PH + 2) x 18 pixels per slice, which
+// crosses once, leaves a tap's rows unevenly spaced, so they must go
+// through registers by ldmatrix; that route timed no faster at the learning
+// demo's shapes.)
+constexpr int C32 = 32;       // channels per K slice
+constexpr int ROW32 = 64;     // bytes of one pixel's slice
+
+// the bytes one box brings, and its ring buffer (rounded up to 1024 bytes)
+__host__ __device__ constexpr int slice32_box_tx(int mw) { return (8 * mw + 2) * TMA_W * ROW32; }
+__host__ __device__ constexpr int slice32_box_bytes(int mw) { return (slice32_box_tx(mw) + 1023) / 1024 * 1024; }
+// each consumer warpgroup's output tile, staged for its TMA store (BN = 32)
+__host__ __device__ constexpr int slice32_out_bytes(int mw, int bn) { return bn == 32 ? 128 * mw * bn * 2 : 0; }
+__host__ __device__ constexpr size_t slice32_smem_bytes(int mw, int bn, int stages, int k_slices) {
+  return 1024 + (size_t)stages * slice32_box_bytes(mw) + 2 * (size_t)slice32_out_bytes(mw, bn) +
+         (size_t)k_slices * bn * ROW32 + (size_t)stages * 16;
+}
+
+template <int MW, int BN, int STAGES>
+__global__ void __launch_bounds__(384, 1)
+conv3x3_slice32_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap y_map,
+                       const bf16* __restrict__ w, const bf16* __restrict__ bias, bf16* __restrict__ out, Shape s) {
+  static_assert(BN == 8 || BN == 32, "tile width");
+  static_assert(STAGES % 2 == 0, "a ring of STAGES / 2 buffers per consumer warpgroup");
+  constexpr int PH = 8 * MW, NB = 2 * MW;  // patch rows; its m64 blocks
+  constexpr int RING = STAGES / 2;
+  constexpr int BOX_BYTES = slice32_box_bytes(MW), BOX_TX = slice32_box_tx(MW);
+  constexpr int W_SLICE = BN * ROW32;  // one K slice of the resident weight: BN rows of 32 k
+  constexpr int OUT_BYTES = slice32_out_bytes(MW, BN);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const int cs = s.Cin / C32, k_slices = 9 * cs;
+  const uint32_t staged = base + STAGES * BOX_BYTES, wres = staged + 2 * OUT_BYTES;
+  const uint32_t full = wres + k_slices * W_SLICE, empty = full + STAGES * 8;
+  // warp-uniform to the compiler (a divergent branch around wgmma serializes it)
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int tiles_w = (s.W + TMA_W - 1) / TMA_W, tiles_h = (s.H + PH - 1) / PH;
+  const int patches = s.B * tiles_h * tiles_w, n0 = blockIdx.y * BN;
+  const int n_loads = 3 * cs;  // boxes per patch: slice c, dx (fastest)
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      hopper::mbarrier_init(full + i * 8, 1);
+      hopper::mbarrier_init(empty + i * 8, 128);  // the warpgroup that owns the box
+    }
+    hopper::fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  // The j-th patch of this block belongs to consumer warpgroup j % 2, and
+  // its boxes to that warpgroup's ring: box i is the warpgroup's box
+  // g = j / 2 * n_loads + i, in stage (j % 2) RING + g % RING. A barrier is
+  // then waited on by one warpgroup only, never more than one phase ahead.
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<40>();
+    if (tid == 0) {
+      int j = 0;
+      for (int p = blockIdx.x; p < patches; p += gridDim.x, ++j) {
+        const int w0 = p % tiles_w * TMA_W, h0 = p / tiles_w % tiles_h * PH, b = p / (tiles_w * tiles_h);
+        for (int i = 0; i < n_loads; ++i) {
+          const int g = j / 2 * n_loads + i, st = (j & 1) * RING + g % RING;
+          if (g >= RING) hopper::mbarrier_wait(empty + st * 8, (g / RING - 1) & 1);
+          const uint32_t bar = full + st * 8;
+          hopper::mbarrier_expect_tx(bar, BOX_TX);
+          hopper::tma_load_4d(base + st * BOX_BYTES, &x_map, bar, i / 3 * C32, w0 + i % 3 - 1, h0 - 1, b);
+        }
+      }
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<232>();
+  const int cw = wg - 1;  // this consumer warpgroup takes the block's patches j = cw, cw + 2, ...
+  const int lane = tid & 31, warp = (tid & 127) >> 5, t = lane & 3;
+  // The weight, K-major: slice kt holds BN rows (channels n0 ..) of 32 k,
+  // row n at swizzle64(n, k / 8). 16-byte reads of 8 channels where BN = 32
+  // (Cout % 8 == 0 then), else one value at a time, zero past Cout.
+  uint8_t* wres_ptr = smem_raw + (wres - raw);
+  if constexpr (BN == 8) {
+    for (int e = tid - 128; e < 9 * s.Cin * 8; e += 256) {
+      const int nn = e & 7, kk = e >> 3, n = n0 + nn;
+      const bf16 v = n < s.Cout ? w[(size_t)kk * s.Cout + n] : __float2bfloat16(0.f);
+      *reinterpret_cast<bf16*>(wres_ptr + (kk / C32) * W_SLICE + hopper::swizzle64(nn, (kk & 31) >> 3) +
+                               (kk & 7) * 2) = v;
+    }
+  } else {
+    constexpr int VPR = BN / 8;  // 16-byte vectors per weight row
+    for (int e = tid - 128; e < 9 * s.Cin * VPR; e += 256) {
+      const int kk = e / VPR, v = e % VPR;
+      const uint4 q = *reinterpret_cast<const uint4*>(w + (size_t)kk * s.Cout + n0 + 8 * v);
+      const bf16* vals = reinterpret_cast<const bf16*>(&q);
+      uint8_t* dst = wres_ptr + (kk / C32) * W_SLICE + (kk & 7) * 2;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<bf16*>(dst + hopper::swizzle64(8 * v + j, (kk & 31) >> 3)) = vals[j];
+    }
+  }
+  hopper::fence_proxy_async();
+  hopper::named_barrier_sync(1, 256);
+  // this thread's bias (BN = 32): columns n0 + 8 q + 2 t + e of the accumulator layout
+  float bsum[BN == 32 ? BN / 4 : 1];
+#pragma unroll
+  for (int i = 0; i < (BN == 32 ? BN / 4 : 0); ++i) bsum[i] = bias ? to_f32(bias[n0 + 8 * (i / 2) + 2 * t + i % 2]) : 0.f;
+
+  // A box is released (its `empty` barrier, one arrival per thread of the
+  // warpgroup) once the wgmma that read it has completed: `held` is that
+  // box's ring stage, or -1.
+  int held = -1;
+  for (int j = cw;; j += 2) {
+    const int p = blockIdx.x + j * gridDim.x;
+    if (p >= patches) break;
+    float acc[NB][BN / 2];
+#pragma unroll
+    for (int mb = 0; mb < NB; ++mb)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[mb][i] = 0.f;
+    for (int i = 0; i < n_loads; ++i) {
+      const int g = j / 2 * n_loads + i, st = cw * RING + g % RING;
+      const uint32_t box = base + st * BOX_BYTES;
+      hopper::mbarrier_wait(full + st * 8, (g / RING) & 1);
+      const int c = i / 3, dx = i % 3;
+#pragma unroll
+      for (int mb = 0; mb < NB; ++mb) hopper::fence_regs(acc[mb]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        const uint32_t b_slice = wres + ((dy * 3 + dx) * cs + c) * W_SLICE;
+#pragma unroll
+        for (int mb = 0; mb < NB; ++mb) {
+          const uint32_t a_tile = box + (dy * TMA_W + mb * 64) * ROW32;
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk)
+            hopper::wgmma_m64k16<0>(acc[mb], hopper::desc_sw64(a_tile + kk * 32, 16, 512),
+                                    hopper::desc_sw64(b_slice + kk * 32, 16, 512));
+        }
+      }
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int mb = 0; mb < NB; ++mb) hopper::fence_regs(acc[mb]);
+      hopper::wgmma_wait<1>();  // the previous box's products are done: free it
+      if (held >= 0) hopper::mbarrier_arrive(empty + held * 8);
+      held = st;
+    }
+    hopper::wgmma_wait<0>();
+    hopper::mbarrier_arrive(empty + held * 8);  // the patch's last box
+    held = -1;
+    const int w0 = p % tiles_w * TMA_W, h0 = p / tiles_w % tiles_h * PH, b = p / (tiles_w * tiles_h);
+#pragma unroll
+    for (int mb = 0; mb < NB; ++mb) hopper::fence_regs(acc[mb]);
+    if constexpr (BN == 8) {
+#pragma unroll
+      for (int mb = 0; mb < NB; ++mb) {
+        int rows[2];  // GEMM row r of the patch is pixel (h0 + r / TMA_W, w0 + r % TMA_W)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = mb * 64 + warp * 16 + (lane >> 2) + h * 8;
+          const int hh = h0 + r / TMA_W, ww = w0 + r % TMA_W;
+          rows[h] = hh < s.H && ww < s.W ? (b * s.H + hh) * s.W + ww : -1;
+        }
+        store_tile<8, true>(acc[mb], rows, n0, s, bias, out, nullptr, 1);
+      }
+    } else {
+      // register 4 q + 2 h + e: GEMM row r = 64 mb + 16 warp + lane / 4 +
+      // 8 h, column n0 + 8 q + 2 t + e; staged as the output box (PH x 16
+      // pixels x 32 channels, pixel r's row of 64 bytes in the 64-byte
+      // swizzle, conflict-free), which one thread then stores with TMA (the
+      // part past the image is not written).
+      const uint32_t tile = staged + cw * OUT_BYTES;
+      const bool issuer = (tid & 127) == 0;
+      if (issuer) hopper::bulk_wait_read<0>();  // this warpgroup's previous store has read the tile
+      hopper::named_barrier_sync(2 + cw, 128);
+#pragma unroll
+      for (int mb = 0; mb < NB; ++mb)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = mb * 64 + warp * 16 + (lane >> 2) + h * 8;
+#pragma unroll
+          for (int q = 0; q < BN / 8; ++q) {
+            const __nv_bfloat162 v2 = __floats2bfloat162_rn(acc[mb][4 * q + 2 * h] + bsum[2 * q],
+                                                            acc[mb][4 * q + 2 * h + 1] + bsum[2 * q + 1]);
+            const uint32_t off = hopper::swizzle64(r, q) + 4 * t;
+            *reinterpret_cast<__nv_bfloat162*>(smem_raw + (tile - raw) + off) = v2;
+          }
+        }
+      hopper::fence_proxy_async();
+      hopper::named_barrier_sync(2 + cw, 128);
+      if (issuer) {
+        hopper::tma_store_4d(&y_map, tile, n0, w0, h0, b);
+        hopper::bulk_commit();
+      }
+    }
+  }
+  if (BN != 8 && (tid & 127) == 0) hopper::bulk_wait<0>();  // the last stores are done before the block exits
+}
+
+// ---------------------------------------------------------------------------
 // float32 on Hopper: "tf32x3", the implicit GEMM on the tensor cores with
 // split operands.
 //
@@ -957,6 +1201,36 @@ cudaError_t launch_tma_narrow(const Args& a, const Shape& s, cudaStream_t stream
   return cudaGetLastError();
 }
 
+// slice32: x as (B, H, W, Cin), boxes of 32 channels x 16 x (PH + 2) pixels
+// in the 64-byte swizzle; `blocks` persistent blocks (the planner's grid
+// width: one per SM) over each Cout tile, each walking patches.
+template <int MW, int BN, int STAGES>
+cudaError_t launch_slice32(const Args& a, const Shape& s, int blocks, cudaStream_t stream) {
+  auto kernel = conv3x3_slice32_kernel<MW, BN, STAGES>;
+  static std::atomic<uint64_t> allowed{0};
+  const cudaError_t attr = hopper::allow_dynamic_smem(kernel, 232448, allowed);
+  if (attr != cudaSuccess) return attr;
+  if ((BN == 8 ? s.Cout >= 64 : s.Cout % BN != 0) || blocks < 1) return cudaErrorInvalidValue;
+  const size_t smem = slice32_smem_bytes(MW, BN, STAGES, 9 * s.Cin / C32);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  const cuuint64_t x_dims[4] = {(cuuint64_t)s.Cin, (cuuint64_t)s.W, (cuuint64_t)s.H, (cuuint64_t)s.B};
+  const cuuint64_t x_strides[3] = {(cuuint64_t)s.Cin * 2, (cuuint64_t)s.W * s.Cin * 2,
+                                   (cuuint64_t)s.H * s.W * s.Cin * 2};
+  const cuuint32_t x_box[4] = {C32, TMA_W, 8 * MW + 2, 1};
+  // the output as (B, H, W, Cout), boxes of 32 channels x 16 x PH pixels (BN = 32)
+  const cuuint64_t y_dims[4] = {(cuuint64_t)s.Cout, (cuuint64_t)s.W, (cuuint64_t)s.H, (cuuint64_t)s.B};
+  const cuuint64_t y_strides[3] = {(cuuint64_t)s.Cout * 2, (cuuint64_t)s.W * s.Cout * 2,
+                                   (cuuint64_t)s.H * s.W * s.Cout * 2};
+  const cuuint32_t y_box[4] = {BN, TMA_W, 8 * MW, 1};
+  CUtensorMap x_map, y_map = {};
+  if (!hopper::encode_bf16_map(&x_map, a.x, 4, x_dims, x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      (BN == 32 && !hopper::encode_bf16_map(&y_map, a.out, 4, y_dims, y_strides, y_box, CU_TENSOR_MAP_SWIZZLE_64B)))
+    return cudaErrorInvalidValue;
+  kernel<<<dim3(blocks, (s.Cout + BN - 1) / BN), 384, smem, stream>>>(x_map, y_map, static_cast<const bf16*>(a.w), static_cast<const bf16*>(a.bias),
+                                      static_cast<bf16*>(a.out), s);
+  return cudaGetLastError();
+}
+
 template <int NWG, int BN, int STAGES>
 cudaError_t launch_tf32x3(const Args& a, const Shape& s, int splits, cudaStream_t stream) {
   auto kernel = conv3x3_tf32x3_kernel<NWG, BN, STAGES>;
@@ -974,13 +1248,15 @@ cudaError_t launch_tf32x3(const Args& a, const Shape& s, int splits, cudaStream_
 }
 
 template <int VARIANT, int NWG, int BN, int STAGES>
-cudaError_t launch_plan(const Args& a, const Shape& s, int splits, cudaStream_t stream) {
+cudaError_t launch_plan(const Args& a, const Shape& s, int splits, int blocks, cudaStream_t stream) {
   if constexpr (VARIANT == 3)  // bm = NWG * 64 = 128 MW: MW m64 blocks per consumer warpgroup
     return launch_tma<NWG / 2, BN, STAGES>(a, s, splits, stream);
   else if constexpr (VARIANT == 4)
     return splits == 1 ? launch_tma_narrow<STAGES>(a, s, stream) : cudaErrorInvalidValue;
   else if constexpr (VARIANT == 5)
     return launch_tf32x3<NWG, BN, STAGES>(a, s, splits, stream);
+  else if constexpr (VARIANT == 6)  // bm = 128 MW
+    return splits == 1 ? launch_slice32<NWG / 2, BN, STAGES>(a, s, blocks, stream) : cudaErrorInvalidValue;
   else
     return launch_wgmma<NWG, BN, STAGES, VARIANT == 2>(a, s, splits, stream);
 }
@@ -999,9 +1275,9 @@ void launch_generic(const Args& a, const Shape& s, int dtype, cudaStream_t strea
 
 }  // namespace
 
-// The instantiated plans, (variant, BM, BN, stages): variant 1 = wgmma,
-// 2 = narrow, 3 = tma, 4 = tma_narrow, 5 = tf32x3. ops/conv3x3.py:INSTANCES
-// lists the same.
+// The instantiated plans, (variant, BM / 64, BN, stages): variant 1 =
+// wgmma, 2 = narrow, 3 = tma, 4 = tma_narrow, 5 = tf32x3, 6 = slice32.
+// ops/conv3x3.py:INSTANCES lists the same.
 #define CONV3X3_INSTANCES(X) \
   X(1, 2, 128, 4)            \
   X(1, 1, 64, 4)             \
@@ -1014,7 +1290,11 @@ void launch_generic(const Args& a, const Shape& s, int dtype, cudaStream_t strea
   X(5, 3, 128, 4)            \
   X(5, 2, 128, 4)            \
   X(5, 1, 64, 4)             \
-  X(5, 1, 8, 4)
+  X(5, 1, 8, 4)              \
+  X(6, 2, 8, 8)              \
+  X(6, 2, 32, 8)             \
+  X(6, 4, 8, 6)              \
+  X(6, 4, 32, 6)
 
 // x: (B, H, W, Cin) contiguous; w: (3, 3, Cin, Cout) contiguous, or for
 // tf32x3 the split weight (2, Cout, 9 Cin) that conv3x3_tf32_split made;
@@ -1023,11 +1303,13 @@ void launch_generic(const Args& a, const Shape& s, int dtype, cudaStream_t strea
 // variant: 0 = generic (bm, bn, stages, splits ignored), 1 = wgmma, 2 =
 // narrow, 3 = tma, 4 = tma_narrow (bf16 only; Cin % 64 == 0; wgmma and tma
 // also Cout % bn == 0; tma_narrow unsplit), 5 = tf32x3 (f32 only; Cin % 32
-// == 0; Cout % bn == 0, or Cout < 64 with bn = 8). Returns the cudaError_t
-// of the launch (0 on success).
+// == 0; Cout % bn == 0, or Cout < 64 with bn = 8), 6 = slice32 (bf16
+// only; Cin % 32 == 0; Cout % bn == 0, or Cout < 64 with bn = 8; unsplit;
+// `blocks` persistent blocks per Cout tile, which the other variants
+// ignore). Returns the cudaError_t of the launch (0 on success).
 extern "C" int conv3x3_nhwc(const void* x, const void* w, const void* bias, void* out, void* partial,
                             int B, int H, int W, int Cin, int Cout, int dtype, int variant, int bm,
-                            int bn, int stages, int splits, int device, void* stream) {
+                            int bn, int stages, int splits, int blocks, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Shape s;
@@ -1046,12 +1328,13 @@ extern "C" int conv3x3_nhwc(const void* x, const void* w, const void* bias, void
     launch_generic(a, s, dtype, st);
     return (int)cudaGetLastError();
   }
-  if (variant == 5 ? dtype != 0 || Cin % F32_SLICE != 0 || (bn == 8 ? Cout >= 64 : Cout % bn != 0)
-                   : dtype != 1 || Cin % SLICE != 0 || (variant % 2 == 1 && Cout % bn != 0))
+  if (variant == 5   ? dtype != 0 || Cin % F32_SLICE != 0 || (bn == 8 ? Cout >= 64 : Cout % bn != 0)
+      : variant == 6 ? dtype != 1 || Cin % C32 != 0
+                     : dtype != 1 || Cin % SLICE != 0 || (variant % 2 == 1 && Cout % bn != 0))
     return (int)cudaErrorInvalidValue;
 #define CONV3X3_CASE(V, NWG, BN_, ST)                               \
   if (variant == V && bm == NWG * 64 && bn == BN_ && stages == ST) \
-    return (int)launch_plan<V, NWG, BN_, ST>(a, s, splits, st);
+    return (int)launch_plan<V, NWG, BN_, ST>(a, s, splits, blocks, st);
   CONV3X3_INSTANCES(CONV3X3_CASE)
 #undef CONV3X3_CASE
   return (int)cudaErrorInvalidValue;

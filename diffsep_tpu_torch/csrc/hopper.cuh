@@ -1,12 +1,13 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels of this
 // package: 16-byte cp.async with zero fill, the async-proxy fence,
-// mbarriers, TMA tile loads, register hand-over between warpgroups, the
-// shared-memory matrix descriptor, and warpgroup MMA (wgmma) for bf16 in,
-// f32 accumulators, one wrapper per N (the overload is chosen by the size of
-// the accumulator array: N / 2 floats per thread), and for tf32 with A from
-// registers, with the float32 -> tf32 rounding; on the host, the encoding
-// of a bf16 tensor map for TMA, and the dynamic shared-memory allowance per
-// device.
+// mbarriers, TMA tile loads and stores, named barriers, register hand-over
+// between warpgroups, the shared-memory matrix descriptors (128- and
+// 64-byte swizzle), and warpgroup MMA (wgmma) for bf16 in, f32
+// accumulators, one wrapper per N (the overload is chosen by the size of
+// the accumulator array: N / 2 floats per thread), and for tf32 with A
+// from registers, with the float32 -> tf32 rounding; on the host, the
+// encoding of a bf16 tensor map for TMA, and the dynamic shared-memory
+// allowance per device.
 #pragma once
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -107,6 +108,33 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map, uint3
       : "memory");
 }
 
+// TMA tile store of shared memory `src` to the tensor at coordinates
+// (innermost first), in this thread's bulk group; the box's part past the
+// tensor's edge is not written. The writes to `src` must be made visible to
+// the async proxy first (fence_proxy_async by each writer, then a barrier).
+__device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src, int c0, int c1, int c2, int c3) {
+  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(map),
+               "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// Waits until at most N of this thread's bulk groups are pending: with
+// .read, until they have read their shared memory (which may then be
+// written again); without, until their writes are done.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Block barrier `id` (1-15; 0 is __syncthreads') among `count` threads.
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // Hands registers from a producer warpgroup to the consumer warpgroups.
 template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() {
@@ -132,6 +160,22 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// Byte offset of 16-byte chunk `chunk` (0-3) of row `row` in a tile of
+// 64-byte rows laid out in the 64-byte swizzle (TMA's SWIZZLE_64B, wgmma's
+// swizzle mode 2), for a tile that starts on a 512-byte boundary: chunk ^=
+// (row / 2) % 4, the address's bits 7-8 into bits 4-5.
+__device__ __forceinline__ uint32_t swizzle64(int row, int chunk) {
+  return static_cast<uint32_t>(row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4));
+}
+
+// wgmma shared-memory matrix descriptor, 64-byte swizzle: atoms of 8 rows of
+// 64 bytes (512 bytes, 512-byte aligned), repeating every `sbo` bytes along
+// the 8-row direction; `lbo` as for desc_sw128.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (2ull << 62);
+}
+
 // d += A (64 x 16, K-major) * B (16 x 8); TRANS_B = 1 reads B MN-major.
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64k16(float (&d)[4], uint64_t desc_a, uint64_t desc_b) {
@@ -142,6 +186,20 @@ __device__ __forceinline__ void wgmma_m64k16(float (&d)[4], uint64_t desc_a, uin
       "}, %4, %5, p, 1, 1, 0, %7;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+// d += A (64 x 16, K-major) * B (16 x 32); TRANS_B = 1 reads B MN-major.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64k16(float (&d)[16], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, %19;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
 }
 

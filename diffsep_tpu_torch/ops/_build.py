@@ -11,7 +11,8 @@ Every wrapper that launches a kernel calls ``count_launch``, which adds one
 to ``launch_counts[name]`` and to ``launch_shapes[(name, shape, cout)]``, so
 a run can show which kernels its path went through, and at which shapes; a
 launch from an autograd backward also adds one to ``backward_counts[name]``
-and to ``backward_shapes[(name, shape, cout)]``.
+and to ``backward_shapes[(name, shape, cout)]``; a wrapper that names the
+plan it launched adds one to ``launch_plans[(name, plan)]``.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -38,6 +39,7 @@ launch_counts: collections.Counter = collections.Counter()
 launch_shapes: collections.Counter = collections.Counter()
 backward_counts: collections.Counter = collections.Counter()
 backward_shapes: collections.Counter = collections.Counter()
+launch_plans: collections.Counter = collections.Counter()
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[tuple, Callable[..., int]] = {}
@@ -135,14 +137,16 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
 
 
-def count_launch(name: str, shape: tuple, cout=None, backward: bool = False) -> None:
+def count_launch(name: str, shape: tuple, cout=None, backward: bool = False, plan: Optional[str] = None) -> None:
     """One launch of kernel ``name`` on an input of ``shape`` (and ``cout``
     output channels, for a kernel that changes them), made by an autograd
-    backward where ``backward``."""
+    backward where ``backward``, of the kernel variant ``plan`` where given."""
     key = (name, tuple(shape), cout)
     with _count_lock:
         launch_counts[name] += 1
         launch_shapes[key] += 1
+        if plan is not None:
+            launch_plans[name, plan] += 1
         if backward:
             backward_counts[name] += 1
             backward_shapes[key] += 1
@@ -150,6 +154,6 @@ def count_launch(name: str, shape: tuple, cout=None, backward: bool = False) -> 
 
 def reset_counts() -> None:
     with _count_lock:
-        for counter in (launch_counts, launch_shapes, backward_counts, backward_shapes):
+        for counter in (launch_counts, launch_shapes, backward_counts, backward_shapes, launch_plans):
             counter.clear()
 

@@ -23,10 +23,23 @@ Which kernel runs is a pure function of the shape, ``plan_conv3x3``:
   It reads the weight K-major and split: ``tf32_split_weight`` makes that
   copy with a kernel of its own, once per weight version where no gradient
   is recorded (``_split_weight``), else on every call.
+- "slice32": bf16, Cin % 32 == 0 and Cin % 64 != 0 (32, 96, 160, ...:
+  the learning demos' nf 32 NCSN++), Cout a multiple of 32, or < 64. It
+  replaces the same Pallas kernels (``_conv_kernel``,
+  ``_conv_kernel_im2col``) at these channel counts, where bytes bound the
+  conv (~144 FLOP per byte at Cin = Cout = 32). The weight's block of
+  Cout (an N tile of 32 or 8 channels) stays in shared memory; one block
+  per SM walks patches of 8 x 16 or 16 x 16 output pixels, K as (tap,
+  32-channel slice) in the 64-byte swizzle, fed by TMA through an
+  mbarrier ring per consumer warpgroup, the two warpgroups taking whole
+  patches in turn; one box per (slice, column offset) serves three taps
+  as wgmma operands in shared memory; bias and one rounding in registers,
+  the output tile staged in shared memory and written by a TMA store.
 - "generic": the other float32 calls (Cin = 6, other channel counts),
-  bf16 with any Cin that is not a multiple of 64 (the stem, Cin =
-  6), and operands not aligned to 16 bytes: the first kernel of the port
-  (WMMA for bf16, CUDA cores for f32).
+  bf16 with Cin not a multiple of 32 (the stem, Cin = 6; 40) or Cout >= 64
+  off the N tiles (not a multiple of 64, or of 32 at Cin % 64 == 32), and
+  operands not aligned to 16 bytes: the first kernel of the port (WMMA for
+  bf16, CUDA cores for f32).
 
 Where the output tiles would leave most of the 132 SMs idle (the deep
 levels), a "tma", "wgmma", "narrow" or "tf32x3" plan splits the K walk over
@@ -74,20 +87,22 @@ __all__ = ["ConvPlan", "conv3x3", "conv3x3_plain", "plan_conv3x3", "tf32_round",
            "tf32_split_weight_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_VARIANTS = {"generic": 0, "wgmma": 1, "narrow": 2, "tma": 3, "tma_narrow": 4, "tf32x3": 5}
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+_VARIANTS = {"generic": 0, "wgmma": 1, "narrow": 2, "tma": 3, "tma_narrow": 4, "tf32x3": 5, "slice32": 6}
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 _SPLIT_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
 SMEM_LIMIT = 232_448  # dynamic shared memory one block may use (227 KB)
 SLICE = 64  # channels per K slice of the bf16 wgmma and narrow kernels
 F32_SLICE = 32  # channels per K slice of the tf32x3 kernel (128-byte rows, as SLICE bf16)
+C32 = 32  # channels per K slice of the bf16 slice32 kernel (64-byte rows)
 # (variant, bm, bn, stages) instantiated in csrc/conv3x3.cu (CONV3X3_INSTANCES)
 INSTANCES = (
     ("wgmma", 128, 128, 4), ("wgmma", 64, 64, 4), ("narrow", 128, 8, 5), ("narrow", 64, 8, 5),
     ("tma", 128, 128, 4), ("tma", 128, 256, 4), ("tma", 256, 128, 4), ("tma_narrow", 256, 8, 4),
     ("tf32x3", 192, 128, 4), ("tf32x3", 128, 128, 4), ("tf32x3", 64, 64, 4),
     ("tf32x3", 64, 8, 4),
+    ("slice32", 128, 8, 8), ("slice32", 128, 32, 8), ("slice32", 256, 8, 6), ("slice32", 256, 32, 6),
 )
 TMA_W = 16  # output columns of a "tma" patch; it has bm / TMA_W rows
 MIN_SLICES = 4  # K slices a split walks at the least, where it can
@@ -114,11 +129,15 @@ class ConvPlan:
 
 
 def _smem_bytes(variant: str, bm: int, bn: int, stages: int, max_slices: int) -> int:
-    # mirrors wgmma_smem_bytes, tma_smem_bytes, tma_narrow_smem_bytes and
-    # tf32x3_smem_bytes in csrc/conv3x3.cu; max_slices: the K slices of
-    # weight a narrow block holds
+    # mirrors wgmma_smem_bytes, tma_smem_bytes, tma_narrow_smem_bytes,
+    # tf32x3_smem_bytes and slice32_smem_bytes in csrc/conv3x3.cu;
+    # max_slices: the K slices of weight a narrow or slice32 block holds
     if variant == "tf32x3":  # A, then B's hi and lo halves, per stage
         return 1024 + stages * (bm + 2 * bn) * 128
+    if variant == "slice32":  # boxes of (bm / TMA_W + 2) x TMA_W pixels of 64 bytes
+        box = (bm // TMA_W + 2) * TMA_W * 64
+        staged = 2 * bm * bn * 2 if bn == 32 else 0  # each consumer warpgroup's output tile
+        return 1024 + stages * -(-box // 1024) * 1024 + staged + max_slices * bn * 64 + stages * 16
     if variant == "tma_narrow":  # boxes of (bm / TMA_W + 2) x TMA_W pixels
         return 1024 + stages * (bm + 2 * TMA_W) * 128 + max_slices * 1024 + stages * 16
     ring = stages * bm * 128
@@ -161,6 +180,37 @@ def _tma(b: int, h: int, w: int, cout: int, k_tiles: int, bm: int, bn: int) -> C
 def _tma_narrow(b: int, h: int, w: int, cout: int, k_tiles: int) -> ConvPlan:
     grid = (min(_patches(b, h, w, 256), SMS), -(-cout // 8), 1)  # a block walks patches
     return ConvPlan("tma_narrow", 256, 8, 4, 1, grid, _smem_bytes("tma_narrow", 256, 8, 4, k_tiles))
+
+
+def _c32(b: int, h: int, w: int, cin: int, cout: int, bm: int, bn: int) -> Optional[ConvPlan]:
+    """The "slice32" plan of bm-row patches and bn-wide N tiles (32 where
+    Cout is a multiple of 32, 8 where Cout < 64): one block per SM over the
+    Cout tiles, each walking patches; the kernel launches grid[0] blocks
+    per tile. None where that instance does not exist or its resident
+    weight does not fit."""
+    stages = next((st for v, m_, n_, st in INSTANCES if (v, m_, n_) == ("slice32", bm, bn)), None)
+    if stages is None or not (cout % bn == 0 if bn > 8 else cout < 64):
+        return None
+    smem = _smem_bytes("slice32", bm, bn, stages, 9 * cin // C32)
+    if smem > SMEM_LIMIT:
+        return None
+    n_tiles = -(-cout // bn)
+    return ConvPlan("slice32", bm, bn, stages, 1,
+                    (min(_patches(b, h, w, bm), max(1, SMS // n_tiles)), n_tiles, 1), smem)
+
+
+def _plan_c32(b: int, h: int, w: int, cin: int, cout: int) -> Optional[ConvPlan]:
+    """bf16 with Cin % 32 == 0 and Cin % 64 != 0 (see ``plan_conv3x3``):
+    the 32-wide N tile, or the 8-wide one where Cout < 64 and either Cout
+    is off 32 or the wider tile's weight does not fit."""
+    if cout % 32 and cout >= 64:
+        return None
+    bm = 256 if _patches(b, h, w, 256) * -(-cout // 32) >= SMS else 128
+    for bn in (32, 8):
+        plan = _c32(b, h, w, cin, cout, bm, bn) or _c32(b, h, w, cin, cout, 128, bn)
+        if plan is not None:
+            return plan
+    return None
 
 
 def _tf32x3(m: int, cout: int, k_tiles: int) -> ConvPlan:
@@ -219,13 +269,28 @@ def plan_conv3x3(b: int, h: int, w: int, cin: int, cout: int,
     cheapest; else 64 x 64 tiles (the deepest levels, split over two
     waves; Cout % 128 == 64). Cout < 64 takes 64 x 8
     tiles, split where they leave fewer than NARROW_WAVES blocks per SM.
-    Every other float32 call goes to "generic"."""
+    Every other float32 call goes to "generic".
+
+    bf16 with Cin % 32 == 0 and Cin % 64 != 0 goes to "slice32", unsplit.
+    Its N tile is 32 channels where Cout % 32 == 0, else 8 (Cout < 64; also
+    where the 32-wide tile's resident weight would not fit in shared
+    memory); its patches are 16 x 16 where they give every block one or
+    more over the 32-wide Cout tiles, else 8 x 16. Cout >= 64 not a multiple
+    of 32 goes to "generic". These rules follow per-shape timings of every
+    instance at the learning demo's shapes (scripts/torch_port_conv_plans.py
+    --shapes demo)."""
     m = b * h * w
     if dtype == torch.float32:
         if cin % F32_SLICE or (cout >= 64 and cout % 64):
             return _generic(m, cout)
         return _tf32x3(m, cout, 9 * cin // F32_SLICE)
-    if dtype != torch.bfloat16 or cin % SLICE or (cout >= 64 and cout % 64):
+    if dtype != torch.bfloat16:
+        return _generic(m, cout)
+    if cin % SLICE and cin % C32 == 0:
+        plan = _plan_c32(b, h, w, cin, cout)
+        if plan is not None:
+            return plan
+    if cin % SLICE or (cout >= 64 and cout % 64):
         return _generic(m, cout)
     k_tiles = 9 * cin // SLICE
     row_tiles = -(-m // 128)
@@ -347,10 +412,10 @@ def _launch(x: Tensor, weight: Tensor, bias: Optional[Tensor], plan: ConvPlan) -
         x.data_ptr(), operand.data_ptr(), bias.data_ptr() if bias is not None else None,
         out.data_ptr(), partial.data_ptr() if partial is not None else None,
         b, h, w, cin, cout, _DTYPES[x.dtype], _VARIANTS[plan.variant], plan.bm, plan.bn,
-        plan.stages, plan.splits, x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+        plan.stages, plan.splits, plan.grid[0], x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "conv3x3")
-    _build.count_launch("conv3x3", x.shape, cout)
+    _build.count_launch("conv3x3", x.shape, cout, plan=plan.variant)
     return out
 
 

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Times the conv3x3 kernels of the PyTorch port (diffsep_tpu_torch) under
 every instantiated plan, at each conv shape of one flagship score
-evaluation, on one GPU, in bf16 or in float32.
+evaluation, on one GPU, in bf16 or in float32; or at the learning demo's
+shapes.
 
     python3 scripts/torch_port_conv_plans.py [--dtype float32] [--report PATH]
+    python3 scripts/torch_port_conv_plans.py --shapes demo [--report PATH]
 
 The shapes come from one flagship score evaluation (chip_smoke.SERVE_BATCH
 mixtures of chip_smoke.SERVE_SECONDS s), as in chip_smoke.py. For each shape
@@ -24,6 +26,16 @@ planner's split count, half and twice that (and unsplit), and cuDNN in
 float32 (TF32 off) twice: with torch.backends.cudnn.benchmark off (the
 default heuristic's algorithm) and on (the fastest of cuDNN's algorithms,
 chosen by its own timing on the first call).
+
+With --shapes demo the shapes are those of one score evaluation of the
+learning demo's NCSN++ (scripts/torch_port_train_demo.py: nf 32, ch_mult
+(1, 1, 2), bf16) on 1 s mixtures at batch 16 (a training step) and 8 (its
+evaluation). Each shape with Cin % 32 == 0 and Cin % 64 != 0 runs every
+"slice32" instance that takes its Cout and fits, the generic kernel, and
+cuDNN (`F.conv2d` on the channels-last views, TF32 off), beside its byte
+bound and a copy of its input (`clone`: the rate HBM gives a plain
+stream); each route's output is held to the exact sum (a float64 conv of
+the same bf16 inputs: rms and largest error).
 """
 from __future__ import annotations
 
@@ -40,16 +52,20 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import FS, SERVE_BATCH, SERVE_SECONDS, sleep_cycles_per_ms, time_ms  # noqa: E402
+from chip_smoke import (FS, HBM_BYTES_PER_S, PEAK_FLOPS, SERVE_BATCH, SERVE_SECONDS,  # noqa: E402
+                        sleep_cycles_per_ms, time_ms)
 
 
 F32_EXTRA = [((2, 16, 20, 768), 256), ((2, 32, 40, 768), 256)]  # set C's cat inputs
+DEMO_BATCHES = (16, 8)  # the learning demo's training and evaluation batches
 
 
 def candidates(conv, shape, cout, dtype=None):
     """Every instantiated plan of the planner's variant and its sibling
     ("tma" and "wgmma", "tma_narrow" and "narrow") for this shape; for
-    float32, every "tf32x3" instance and the generic kernel."""
+    float32, every "tf32x3" instance; for "slice32", every instance that
+    takes this Cout and fits; for float32 and "slice32", the generic kernel
+    too."""
     import torch
 
     dtype = dtype or torch.bfloat16
@@ -60,8 +76,12 @@ def candidates(conv, shape, cout, dtype=None):
     siblings = [{"tma", "wgmma"}, {"tma_narrow", "narrow"}, {"tf32x3"}]
     variants = next((v for v in siblings if chosen.variant in v), set())  # none for generic
     plans = {chosen}
-    if chosen.variant == "tf32x3":
+    if chosen.variant in ("tf32x3", "slice32"):
         plans.add(conv._generic(m, cout))
+    if chosen.variant == "slice32":
+        plans |= {p for v, bm, bn, _ in conv.INSTANCES if v == "slice32"
+                  for p in [conv._c32(b, h, w, cin, cout, bm, bn)] if p is not None}
+        return chosen, sorted(plans, key=lambda p: (p.variant, p.bm, p.bn, p.stages, p.splits))
     for variant, bm, bn, stages in conv.INSTANCES:
         if variant not in variants or ("narrow" not in variant and variant != "tf32x3" and cout % bn):
             continue
@@ -82,6 +102,33 @@ def candidates(conv, shape, cout, dtype=None):
             if smem <= conv.SMEM_LIMIT:
                 plans.add(conv.ConvPlan(variant, bm, bn, stages, splits, grid, smem))
     return chosen, sorted(plans, key=lambda p: (p.variant, p.bm, p.bn, p.stages, p.splits))
+
+
+def conv_shapes(model, batch, n, dev):
+    """The (shape, cout) of every conv3x3 call of one score evaluation of
+    ``model`` on ``batch`` mixtures of ``n`` samples."""
+    import torch
+
+    from diffsep_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(0)
+    mix = torch.from_numpy((0.1 * rng.standard_normal((batch, 1, n))).astype(np.float32)).to(dev)
+    xt = torch.from_numpy((0.1 * rng.standard_normal((batch, 2, n))).astype(np.float32)).to(dev)
+    _build.reset_counts()
+    with torch.no_grad():
+        model.score_fn(xt, torch.full((batch,), 0.5, device=dev), mix)
+    return sorted({(s, c) for (k, s, c) in _build.launch_shapes if k == "conv3x3"})
+
+
+def demo_shapes(dev):
+    """The learning demo's conv shapes at its training and evaluation batches."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_port_train_demo", ROOT / "scripts" / "torch_port_train_demo.py")
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    model = demo.build_model("bfloat16", False, dev, seed=0)
+    return sorted({sc for b in DEMO_BATCHES for sc in conv_shapes(model, b, demo.SAMPLES, dev)})
 
 
 def host_us(fn, cycles_per_ms, calls=50):
@@ -106,13 +153,16 @@ def main() -> int:
     import torch.nn.functional as F
 
     from diffsep_tpu_torch.model import DiffSepModel
-    from diffsep_tpu_torch.ops import _build
     from diffsep_tpu_torch.ops import conv3x3 as conv
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--report", type=Path, default=None, help="write every timing to this JSON file")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
+    ap.add_argument("--shapes", choices=("flagship", "demo"), default="flagship",
+                    help="the flagship's conv shapes, or the learning demo's at batch 16 and 8 (bf16)")
     args = ap.parse_args()
+    if args.shapes == "demo" and args.dtype != "bfloat16":
+        ap.error("--shapes demo times bf16")
     if not torch.cuda.is_available():
         print("torch_port_conv_plans: no CUDA device", file=sys.stderr)
         return 2
@@ -122,15 +172,10 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
     dev = torch.device("cuda")
-    model = DiffSepModel(device=dev, seed=0)
-    n = SERVE_SECONDS * FS
-    rng = np.random.default_rng(0)
-    mix = torch.from_numpy((0.1 * rng.standard_normal((SERVE_BATCH, 1, n))).astype(np.float32)).to(dev)
-    xt = torch.from_numpy((0.1 * rng.standard_normal((SERVE_BATCH, 2, n))).astype(np.float32)).to(dev)
-    _build.reset_counts()
-    with torch.no_grad():
-        model.score_fn(xt, torch.full((SERVE_BATCH,), 0.5, device=dev), mix)
-    shapes = sorted({(s, c) for (k, s, c) in _build.launch_shapes if k == "conv3x3"})
+    if args.shapes == "demo":  # the shapes of the 32-channel-slice plans
+        shapes = [(sh, c) for sh, c in demo_shapes(dev) if sh[3] % conv.C32 == 0 and sh[3] % conv.SLICE]
+    else:
+        shapes = conv_shapes(DiffSepModel(device=dev, seed=0), SERVE_BATCH, SERVE_SECONDS * FS, dev)
     dtype = getattr(torch, args.dtype)
     if dtype == torch.float32:
         shapes = sorted({((bb, *s[1:]), c) for s, c in shapes + F32_EXTRA for bb in (SERVE_BATCH, 6)})
@@ -160,6 +205,25 @@ def main() -> int:
             rows.append(dict(shape=list(shape), cout=cout, dtype=args.dtype, variant=p.variant, bm=p.bm, bn=p.bn,
                              stages=p.stages, splits=p.splits, ms=times[p], host_us=host[p], rel_err=errs[p],
                              chosen=p == chosen))
+        if chosen.variant == "slice32":
+            x_lib = x.permute(0, 3, 1, 2)
+            w_lib = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            ms = time_ms(lambda: F.conv2d(x_lib, w_lib, bias, padding=1), cycles_per_ms)
+            copy_ms = time_ms(lambda: x.clone(), cycles_per_ms)
+            nbytes = (x.numel() + wt.numel() + x.numel() // shape[3] * cout + cout) * 2
+            bound = max(nbytes / HBM_BYTES_PER_S, 2.0 * x.numel() * 9 * cout / PEAK_FLOPS["bfloat16"]) * 1e3
+            with torch.no_grad():
+                exact = F.conv2d(x_lib.double(), w_lib.double(), bias.double(), padding=1).permute(0, 2, 3, 1)
+                outs = {f"{p.variant} {p.bm}x{p.bn}": conv._launch(x, wt, bias, p) for p in plans}
+                outs["cudnn"] = F.conv2d(x_lib, w_lib, bias, padding=1).permute(0, 2, 3, 1)
+                exact_err = {k: dict(rms=(v.double() - exact).pow(2).mean().sqrt().item(),
+                                     max=(v.double() - exact).abs().max().item()) for k, v in outs.items()}
+            print(f"   {'x'.join(map(str, shape))}->{cout} cudnn: {ms:.4f} ms; copy of x {copy_ms:.4f} ms; "
+                  f"bound {bound * 1e3:.3f} us; error against the exact sum "
+                  + ", ".join(f"{k} rms {e['rms']:.4g} max {e['max']:.4g}" for k, e in exact_err.items()),
+                  flush=True)
+            rows.append(dict(shape=list(shape), cout=cout, dtype=args.dtype, variant="cudnn", ms=ms, bound_ms=bound,
+                             copy_ms=copy_ms, exact_err=exact_err))
         if dtype == torch.float32:
             x_lib = x.permute(0, 3, 1, 2)
             w_lib = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)

@@ -15,6 +15,8 @@ terms unsplit). bfloat16
 outputs are each rounded once from an f32 sum on both sides; they differ
 by at most about one bf16 step, held to 1e-2.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -102,6 +104,82 @@ def test_conv3x3_unaligned_input_takes_the_generic_kernel(dev):
     shifted.copy_(x)
     assert shifted.data_ptr() % 16 and conv3x3.plan_conv3x3(*x.shape, 128).variant != "generic"
     _close(conv3x3.conv3x3(shifted, k, bias), conv3x3.conv3x3_plain(x, k, bias), torch.bfloat16)
+
+
+# bf16 with Cin % 32 == 0 and Cin % 64 != 0: the "slice32" plan (32-channel
+# K slices in the 64-byte swizzle). Cin 32, 96 and 160 (one, three and five
+# slices) with Cout 6 (the 8-wide tile), 20 (three of them), 32, 64 and 128
+# (two and four 32-wide tiles); ragged M and odd H and W, patches past
+# the bottom and right edges, images narrower than a patch; the learning
+# demo's Cin 32 and 96 shapes at batch 16 and 8.
+C32_SHAPES = [(2, 33, 41, 32, 32), (1, 17, 19, 96, 64), (3, 9, 7, 160, 128), (2, 64, 32, 32, 6),
+              (1, 130, 131, 96, 6), (2, 31, 45, 160, 64), (1, 5, 3, 32, 32), (1, 40, 50, 96, 128),
+              (2, 20, 24, 32, 20), (1, 16, 16, 160, 6), (1, 23, 70, 32, 128), (2, 45, 29, 96, 32),
+              (16, 256, 128, 32, 32), (16, 256, 128, 32, 6), (16, 128, 64, 32, 32), (16, 128, 64, 32, 6),
+              (16, 64, 32, 32, 32), (16, 64, 32, 32, 64), (16, 128, 64, 96, 32), (16, 64, 32, 96, 64),
+              (8, 256, 128, 32, 32), (8, 64, 32, 96, 64)]
+
+
+@pytest.mark.parametrize("shape", C32_SHAPES)
+def test_conv3x3_c32_matches_plain(dev, shape):
+    """The planner's plan, with and without bias: one counted launch, the
+    plain version's values within one bf16 step."""
+    x, k, bias = _conv_inputs(dev, torch.bfloat16, shape)
+    assert conv3x3.plan_conv3x3(*shape).variant == "slice32"
+    n0 = _build.launch_counts["conv3x3"]
+    got = conv3x3.conv3x3(x, k, bias)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["conv3x3"] == n0 + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (*x.shape[:3], k.shape[3])
+    _close(got, conv3x3.conv3x3_plain(x, k, bias), torch.bfloat16)
+    _close(conv3x3.conv3x3(x, k), conv3x3.conv3x3_plain(x, k), torch.bfloat16)
+
+
+def _c32_plans(shape):
+    """Every "slice32" instance that takes this shape's Cout and fits, at
+    each patch height and N tile width."""
+    b, h, w, cin, cout = shape
+    return [p for v, bm, bn, _ in conv3x3.INSTANCES if v == "slice32"
+            for p in [conv3x3._c32(b, h, w, cin, cout, bm, bn)] if p is not None]
+
+
+@pytest.mark.parametrize("shape", [(2, 33, 41, 32, 32), (1, 17, 19, 96, 64), (3, 9, 7, 160, 128),
+                                   (1, 130, 131, 96, 6), (2, 20, 24, 32, 20), (16, 64, 32, 96, 64)])
+def test_conv3x3_every_c32_plan_matches_plain(dev, shape):
+    """Every instance at the planner's grid, and at grids of 1 and 7 blocks
+    per Cout tile: the launch takes the plan's grid width, and each block
+    walks every patch that falls to it."""
+    x, k, bias = _conv_inputs(dev, torch.bfloat16, shape)
+    want = conv3x3.conv3x3_plain(x, k, bias)
+    plans = _c32_plans(shape)
+    assert plans and {p.bm for p in plans} >= {128}
+    for plan in plans:
+        for width in {plan.grid[0], 1, 7}:
+            grid = (width, *plan.grid[1:])
+            _close(conv3x3._launch(x, k, bias, dataclasses.replace(plan, grid=grid)), want, torch.bfloat16)
+
+
+def test_conv3x3_unaligned_c32_input_takes_the_generic_kernel(dev):
+    """A bf16 input with Cin = 96, 2 bytes off the 16-byte alignment, goes to
+    the generic kernel and still matches."""
+    x, k, bias = _conv_inputs(dev, torch.bfloat16, (2, 17, 19, 96, 64))
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 and conv3x3.plan_conv3x3(*x.shape, 64).variant == "slice32"
+    _close(conv3x3.conv3x3(shifted, k, bias), conv3x3.conv3x3_plain(x, k, bias), torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [(2, 33, 41, 32, 32), (2, 16, 20, 96, 64), (2, 32, 16, 32, 6)])
+def test_conv3x3_c32_gradients_match_plain(dev, shape):
+    x, k, bias = _conv_inputs(dev, torch.bfloat16, shape)
+    g = torch.randn((*shape[:3], shape[4]), device=dev).to(torch.bfloat16)
+    n0 = _build.launch_counts["conv3x3"]
+    got = _grads(conv3x3.conv3x3, (x, k, bias), g)
+    assert _build.launch_counts["conv3x3"] == n0 + 1
+    want = _grads(conv3x3.conv3x3_plain, (x, k, bias), g)
+    for a, b_ in zip(got, want):
+        assert a.shape == b_.shape and a.dtype == b_.dtype
+        _close(a, b_, torch.bfloat16)
 
 
 # float32's "tf32x3" plan (split-operand TF32 on the tensor cores) at every
