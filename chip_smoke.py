@@ -100,9 +100,10 @@ Phases, each of which fails the run on any error:
      after its third micro-step must save a checkpoint at its step and
      resume from it, here with trainer.profiler=true (a trace under the run
      dir); and cli.evaluate_mp on phase 6's run dir (-d with two workers,
-     N=30, EVAL_MP_FILES files of 5 s), per utterance and with --batch-size
-     EVAL_MP_BATCH, then one worker the same ways (per utterance on half the
-     files), records merged in index order, launches exactly PER_EVAL x 60 x
+     N=30, files of 5 s), per utterance (one file per worker) and with
+     --batch-size EVAL_MP_BATCH on EVAL_MP_FILES files, then one worker the
+     same ways (per utterance on half the files), records merged in index
+     order, launches exactly PER_EVAL x 60 x
      the sampler runs, seconds per utterance recorded. Every new
      kernel shape of these runs is held against its plain version in bf16.
  11. the DiffuSE recipe (model=diffuse: a 30-layer x 64-channel WaveNet on
@@ -193,6 +194,19 @@ Phases, each of which fails the run on any error:
      cuDNN and the bound (each shape's share of it logged), summed per step
      by kernel, by conv plan and by input channels (the stem, Cin 32 and 96,
      both); s per step.
+ 16. the enhancement learning demo (scripts/torch_port_train_demo_nr.py:
+     model=nr, PriorMixSDE, init_hack 4, the same widths and grid as phase
+     15's at batch 16 x 1 s, 16 kHz) trains NR_STEPS steps at seed 0
+     through the script's loop, with phase 15's checks (losses finite, the
+     mean loss of the last 100 steps below DEMO_LOSS_RATIO x that of steps
+     1-10, NR_PER_STEP launches in every window of 100, every
+     Cin 32/96 conv on "slice32"); the noisy floors of its 8 held-out clips
+     (SI-SDR and PESQ-wb) at NR_FLOORS; then the distillation of
+     scripts/torch_port_distill_demo_nr.py from the EMA weights, stages
+     NR_DISTILL_STAGES of NR_DISTILL_STEPS steps each, NR_DISTILL_PER_STEP
+     launches in every step, and each student's ddim SI-SDR on the held-out
+     clips finite; every kernel shape of these runs that phase 15 did not
+     hold, held against its plain version; s per step and per distill step.
 
 The last lines are the `{"kernels": [...]}` summary, then
 `{"ok": true, "device": {...}}`. With --report, every result (per shape,
@@ -264,7 +278,7 @@ DISTILL_STAGES, DISTILL_STEPS, ART_CALLS = (4, 2), 5, 3
 # the DDP fit; the nf=32 float32 model of the DDP-vs-one-process updates and
 # their tolerance (of the norms); the preempted child's batch and width;
 # cli.evaluate_mp's test files and batch
-DDP_RANKS, DDP_BATCH, DDP_STEPS, DDP_TEST, DDP_TOL = 2, 3, 6, 4, 1e-3
+DDP_RANKS, DDP_BATCH, DDP_STEPS, DDP_TEST, DDP_TOL = 2, 3, 6, 2, 1e-3
 DDP_SMALL = {"score_model": {"backbone_args": {"nf": 32, "ch_mult": (1, 1, 2, 2), "num_res_blocks": 1,
                                                "dtype": "float32"}}}
 PREEMPT_BATCH = 2
@@ -300,7 +314,7 @@ OPTION_SETS = {
 }
 OPTION_PER_EVAL = {"A": {"conv3x3": 100}, "B": {"conv3x3": 106, "fir_down2x": 12, "fir_up2x": 18},
                    "C": {"conv3x3": 77, "fir_down2x": 6}, "D": {"conv3x3": 82}}
-OPTION_SEPARATE, OPTION_EVALS = ("A", "C"), 5
+OPTION_SEPARATE, OPTION_EVALS = ("A", "C"), 3
 SMALL_BACKBONE = {"nf": 32, "ch_mult": (1, 1, 2, 2), "num_res_blocks": 1, "dtype": "float32"}
 # set C's artifact: ddim steps; the f32 fallback recipe (float32, remat) at
 # 6 x 5 s: micro-steps around the timing; its launches per micro-step
@@ -341,6 +355,19 @@ LEGACY_SMALL, LEGACY_CPU_TOL, FIG_N = (32, (32, 40)), 1e-3, 30
 # up for every in-block down
 DEMO_STEPS, DEMO_LOSS_RATIO = 300, 0.7
 DEMO_PER_STEP = {"conv3x3": (34, 0), "fir_down2x": (6, 6), "fir_up2x": (6, 4)}
+# phase 16: the enhancement learning demo at seed 0, its steps (the bar of
+# phase 15 on the mean loss of its last 100 steps: the recipe's loss holds
+# near 0.85 of its start through about step 250, steps 201-300 at 0.750 of
+# steps 1-10 at seed 0, 301-400 at 0.471); its launches per step are phase
+# 15's (the same widths on the same 256 x 128 grid); the
+# noisy floors of its held-out set (SI-SDR dB, PESQ-wb; a check on the data
+# and the metrics) and their tolerance; the distillation from its EMA weights:
+# stages, steps per stage, a pool of batches cycled, and its launches per
+# step: the teacher's two substeps and the student's forward, one backward
+NR_STEPS, NR_PER_STEP = 400, DEMO_PER_STEP
+NR_FLOORS = {"si_sdr_noisy_floor_db": (8.98, 0.01), "pesq_wb_noisy_floor": (1.882, 0.001)}
+NR_DISTILL_STAGES, NR_DISTILL_STEPS, NR_DISTILL_POOL = (4, 2), 5, 4
+NR_DISTILL_PER_STEP = {k: (3 * f, b) for k, (f, b) in DEMO_PER_STEP.items()}
 # device time by kernel name fragment (torch.profiler's kernel names)
 OPTION_GROUPS = (("hand conv3x3", ("conv3x3",)), ("hand FIR", ("fir2x",)),
                  ("cuDNN convs", ("dgrad", "wgrad", "cudnn", "xmma", "implicit_convolve", "conv2d")),
@@ -383,11 +410,13 @@ def sleep_cycles_per_ms():
 
 
 def time_ms(fn, cycles_per_ms):
-    """Median device time of one call, over 5 repetitions. 3 to 20 calls,
-    about 5 ms of work, are queued behind a device-side sleep that outlasts
-    their enqueueing on the host, so they run back to back between one pair
-    of CUDA events: the host's launch overhead stays out of the reading even
-    where one call is shorter than its enqueueing."""
+    """Median device time of one call, over 5 repetitions. 1 to 20 calls,
+    about 5 ms of work (one where a call takes longer: cuDNN's float32 convs
+    take up to 0.4 s at some flagship shapes), are queued behind a
+    device-side sleep that outlasts their enqueueing on the host, so they
+    run back to back between one pair of CUDA events: the host's launch
+    overhead stays out of the reading even where one call is shorter than
+    its enqueueing."""
     import torch
 
     fn()
@@ -395,7 +424,7 @@ def time_ms(fn, cycles_per_ms):
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    launches = max(3, min(20, int(5.0 / ((time.perf_counter() - t0) * 1e3))))
+    launches = max(1, min(20, int(5.0 / ((time.perf_counter() - t0) * 1e3))))
     t0 = time.perf_counter()
     for _ in range(launches):
         fn()
@@ -555,18 +584,6 @@ def check_kernel(kind, shape, cout, dtype_name, dev, seed, cycles_per_ms, timed=
     return row
 
 
-@contextlib.contextmanager
-def plain_kernels():
-    """Every kernel wrapper replaced by its plain PyTorch version."""
-    from diffsep_tpu_torch.ops import conv3x3 as conv_mod
-    from diffsep_tpu_torch.ops import fir_resample2x as fir_mod
-
-    with contextlib.ExitStack() as stack:
-        for mod, name in [(conv_mod, "conv3x3"), (fir_mod, "fir_down2x"), (fir_mod, "fir_up2x")]:
-            stack.enter_context(mock.patch.object(mod, name, getattr(mod, name + "_plain")))
-        yield
-
-
 def loss_and_grads(model, draws, mix, tgt):
     """One micro-step's loss and parameter gradients (float32, on the CPU)
     for given draws, through the trainer's loss."""
@@ -656,6 +673,7 @@ def train_phase(dev, card, cycles_per_ms, rng, tmp, extra_overrides=()):
     from diffsep_tpu_torch.model import DiffSepModel
     from diffsep_tpu_torch.models import layers
     from diffsep_tpu_torch.ops import _build
+    from diffsep_tpu_torch.ops.plain import plain_kernels
     from diffsep_tpu_torch.train.checkpoints import load_payload
 
     out = {}
@@ -1153,6 +1171,7 @@ def serve_entry_phase(dev, card, run_dir, tmp, mix, small_pair, rng, checked):
     from diffsep_tpu_torch.cli.serve_http import HTTPSeparationServer
     from diffsep_tpu_torch.data.audio_io import load_wav_bytes, save_wav, wav_to_bytes
     from diffsep_tpu_torch.ops import _build
+    from diffsep_tpu_torch.ops.plain import plain_kernels
     from diffsep_tpu_torch.sampling import ode_sample, pc_sample
     from diffsep_tpu_torch.streaming import separate_streaming
     from diffsep_tpu_torch.train.losses import normalize_batch
@@ -1422,6 +1441,7 @@ def distill_phase(dev, card, run_dir, tmp, small_pair, checked):
     from diffsep_tpu_torch.data.audio_io import load_wav
     from diffsep_tpu_torch.export import load_separator
     from diffsep_tpu_torch.ops import _build
+    from diffsep_tpu_torch.ops.plain import plain_kernels
     from diffsep_tpu_torch.train import distill
     from diffsep_tpu_torch.train.losses import Draws
 
@@ -1984,7 +2004,7 @@ def ddp_phase(dev, card, tmp, run_dir, data, checked):
     # (label, -d, other flags, files, sampler runs): two workers, then one
     # worker beside them in the same call (per utterance on half the files)
     for label, d, mode, files, runs in (
-            (f"{DDP_RANKS} workers, per utterance", d_args, [], EVAL_MP_FILES, EVAL_MP_FILES),
+            (f"{DDP_RANKS} workers, per utterance", d_args, ["-l", str(DDP_RANKS)], DDP_RANKS, DDP_RANKS),
             (f"{DDP_RANKS} workers, --batch-size {EVAL_MP_BATCH}", d_args, batched, EVAL_MP_FILES,
              DDP_RANKS * -(-EVAL_MP_FILES // (DDP_RANKS * EVAL_MP_BATCH))),
             ("1 worker, per utterance", ["0"], ["-l", str(EVAL_MP_FILES // 2)], EVAL_MP_FILES // 2,
@@ -2434,6 +2454,7 @@ def options_phase(dev, card, cycles_per_ms, tmp, data, checked):
     from diffsep_tpu_torch.model import DiffSepModel
     from diffsep_tpu_torch.models import layers
     from diffsep_tpu_torch.ops import _build
+    from diffsep_tpu_torch.ops.plain import plain_kernels
     from diffsep_tpu_torch.train.checkpoints import load_payload
 
     out, total, checks = {"sets": {}}, collections.Counter(), []
@@ -3311,6 +3332,7 @@ def legacy_phase(dev, card, cycles_per_ms, tmp, run_dir, data):
     from diffsep_tpu_torch.data.wsj0_mix import WSJ0_mix
     from diffsep_tpu_torch.models import layers, legacy_layers, score_utils
     from diffsep_tpu_torch.ops import _build, fused_act
+    from diffsep_tpu_torch.ops.plain import plain_kernels
     from diffsep_tpu_torch.sde.ouve import OUVESDE, OUVPSDE
     from diffsep_tpu_torch.train.losses import normalize_batch
 
@@ -3595,6 +3617,119 @@ def demo_phase(dev, card, cycles_per_ms):
     return out, dict(total)
 
 
+def demo_nr_phase(dev, card, cycles_per_ms, held):
+    """Phase 16: the enhancement learning demo and its distillation; see the
+    module docstring. ``held`` is the (kernel, shape, cout) keys phase 15
+    held against the plain versions in bf16. Returns (report, launches over
+    the phase's main-path runs: the training steps, the distill steps and
+    the students' evaluation)."""
+    import importlib.util
+
+    import torch
+
+    from diffsep_tpu_torch.ops import _build
+    from diffsep_tpu_torch.train.distill import ema_state_dict, progressive_distill
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_distill_demo_nr", Path(__file__).resolve().parent / "scripts" / "torch_port_distill_demo_nr.py")
+    dist = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(dist)
+    nr = dist.nr
+    out = {}
+    t_phase = time.perf_counter()
+
+    # 1. training, through the script's loop (which sets the counts to 0
+    # before its first step)
+    model = nr.build_model("bfloat16", False, dev, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    run = nr.train(model, 0, NR_STEPS, np.random.default_rng(0), log=lambda m: log(f"[demo_nr] {m}"))
+    counts, train_shapes = run["launches"], dict(run["launch_shapes"])
+    train_plans = {plan: n for (k, plan), n in _build.launch_plans.items() if k == "conv3x3"}
+    assert counts == {k: NR_STEPS * sum(v) for k, v in NR_PER_STEP.items()}, counts
+    assert run["backward_launches"] == {k: NR_STEPS * v[1] for k, v in NR_PER_STEP.items() if v[1]}, \
+        run["backward_launches"]
+    cumulative = [{}] + run["window_launches"]
+    windows = [dict(collections.Counter(b) - collections.Counter(a)) for a, b in zip(cumulative, cumulative[1:])]
+    assert all(w == {k: 100 * sum(v) for k, v in NR_PER_STEP.items()} for w in windows), windows
+    losses = run["losses"]
+    assert np.isfinite(losses).all()
+    first, last = float(losses[:10].mean()), float(losses[-100:].mean())
+    out.update(steps=NR_STEPS, s_per_step=run["s_per_step"], train_s=run["train_time_s"],
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, loss_first=run["loss_first"],
+               loss_mean_steps_1_10=first, loss_mean_last_100_steps=last,
+               loss_mean_every100=[float(losses[i:i + 100].mean()) for i in range(0, NR_STEPS, 100)],
+               launches_per_step={k: v / NR_STEPS for k, v in counts.items()},
+               backward_launches_per_step={k: v / NR_STEPS for k, v in run["backward_launches"].items()})
+    log(f"[demo_nr] {NR_STEPS} steps of 16 x 1 s at 16 kHz: {run['s_per_step']:.4f} s per step after the first, "
+        f"peak {out['peak_mem_gib']:.2f} GiB; mean loss steps 1-10 {first:.4f}, last 100 {last:.4f} "
+        f"(bar {DEMO_LOSS_RATIO} x); by 100 {out['loss_mean_every100']}; launches per step "
+        f"{out['launches_per_step']}, backward {out['backward_launches_per_step']}, the same in each window "
+        f"of 100 ({card})")
+    assert last < DEMO_LOSS_RATIO * first, (first, last)
+    c32 = sum(n for (k, shape, _), n in train_shapes.items() if k == "conv3x3" and c32_channels(shape[3]))
+    out["conv_launches_per_step_by_plan"] = {plan: n / NR_STEPS for plan, n in sorted(train_plans.items())}
+    assert c32 and train_plans.get("slice32", 0) == c32, (train_plans, c32)
+
+    # 2. the noisy floors of the held-out set
+    mix_te, tgt_te = nr.make_batch(np.random.default_rng(nr.HELDOUT_SEED), nr.HELDOUT_BATCH, nr.SAMPLES)
+    si_floor, pesq_floor = nr.floors(mix_te, tgt_te)
+    out["floors"] = {"si_sdr_noisy_floor_db": round(si_floor, 2), "pesq_wb_noisy_floor": round(pesq_floor, 3)}
+    log(f"[demo_nr] noisy floors of the 8 held-out clips: {out['floors']} (want {NR_FLOORS})")
+    assert all(abs(out["floors"][k] - v) <= tol + 1e-9 for k, (v, tol) in NR_FLOORS.items()), out["floors"]
+
+    # 3. the distillation from the EMA weights, as the distill demo runs it
+    model.score_model.load_state_dict(ema_state_dict(model, run["state"]), strict=True)
+    drng = np.random.default_rng(dist.POOL_SEED)
+    pool = [tuple(torch.from_numpy(a).to(dev) for a in nr.make_batch(drng, nr.BATCH, nr.SAMPLES))
+            for _ in range(NR_DISTILL_POOL)]
+    steps = len(NR_DISTILL_STAGES) * NR_DISTILL_STEPS
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    students = progressive_distill(model, lambda step: pool[step % len(pool)], stages=NR_DISTILL_STAGES,
+                                   steps_per_stage=NR_DISTILL_STEPS, seed=dist.DISTILL_SEED, schedule="log")
+    torch.cuda.synchronize()
+    out["s_per_distill_step"] = (time.perf_counter() - t0) / steps
+    dist_counts, dist_shapes = dict(_build.launch_counts), dict(_build.launch_shapes)
+    assert dist_counts == {k: steps * sum(v) for k, v in NR_DISTILL_PER_STEP.items()}, dist_counts
+    assert dict(_build.backward_counts) == {k: steps * v[1] for k, v in NR_DISTILL_PER_STEP.items() if v[1]}, \
+        dict(_build.backward_counts)
+    out["launches_per_distill_step"] = {k: v / steps for k, v in dist_counts.items()}
+
+    # 4. each student's ddim SI-SDR on the held-out clips
+    si_sdr = nr.metrics()[0]
+    clean = torch.from_numpy(tgt_te[:, :1])
+    _build.reset_counts()
+    out["students_si_sdr_db"], nfe_total = {}, 0
+    for n, state_dict in students.items():
+        model.score_model.load_state_dict(state_dict, strict=True)
+        gen = torch.Generator(device=dev).manual_seed(nr.EVAL_SEED)
+        est, nfe = model.separate(torch.from_numpy(mix_te).to(dev), generator=gen, predictor_name="ddim",
+                                  corrector_name="none", N=n, schedule="log")
+        nfe_total += nfe
+        out["students_si_sdr_db"][n] = float(si_sdr(est[:, :1].float().cpu(), clean))
+    eval_counts, eval_shapes = dict(_build.launch_counts), dict(_build.launch_shapes)
+    assert eval_counts == {k: nfe_total * v[0] for k, v in NR_PER_STEP.items()}, (eval_counts, nfe_total)
+    assert all(np.isfinite(v) for v in out["students_si_sdr_db"].values()), out["students_si_sdr_db"]
+    log(f"[demo_nr] distillation {NR_DISTILL_STAGES} x {NR_DISTILL_STEPS} steps: {out['s_per_distill_step']:.4f} s "
+        f"per distill step, launches per step {out['launches_per_distill_step']}; students' ddim SI-SDR "
+        f"{out['students_si_sdr_db']} dB ({card})")
+
+    # 5. every kernel shape of these runs that phase 15 did not hold
+    rows = []
+    for i, key in enumerate(sorted((set(train_shapes) | set(dist_shapes) | set(eval_shapes)) - held, key=str)):
+        rows.append(check_kernel(key[0], key[1], key[2], "bfloat16", dev, 1600 + i, cycles_per_ms))
+    out["kernel_checks"] = rows
+    bad = [r for r in rows if not r["ok"]]
+    assert not bad, f"kernel mismatches at the enhancement demo's shapes: {bad}"
+    total = collections.Counter(counts)
+    total.update(dist_counts)
+    total.update(eval_counts)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[demo_nr] {len(rows)} kernel shapes new to phase 16 held; phase 16 took {out['seconds']:.1f} s; "
+        f"launches {dict(total)}")
+    return out, dict(total)
+
+
 def c32_channels(cin):
     """Input channels that the bf16 conv runs on 32-channel K slices."""
     return cin % 32 == 0 and cin % 64 != 0
@@ -3673,6 +3808,7 @@ def main() -> int:
         return 2
     from diffsep_tpu_torch.model import DiffSepModel
     from diffsep_tpu_torch.ops import _build
+    from diffsep_tpu_torch.ops.plain import plain_kernels
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3685,6 +3821,10 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     report = {"card": card}
+    t_start = time.perf_counter()
+
+    def mark(label):
+        log(f"[time] {label}: {time.perf_counter() - t_start:.1f} s since the start")
 
     # 1. build
     t0 = time.perf_counter()
@@ -3805,6 +3945,7 @@ def main() -> int:
     assert all(counts["kernels", "one-read"].get(k, 0) > 0 for k in PER_EVAL), counts
     assert not counts["plain", "one-read"], counts
 
+    mark("kernel and model phases done")
     # 5. serving phase
     serve = {}
     for label, kw in [
@@ -3831,22 +3972,27 @@ def main() -> int:
             f"{SERVE_BATCH / secs:.3f} utt/s, peak {serve[label]['peak_mem_gib']:.2f} GiB, "
             f"launches {counts} ({card})")
     report["serving"] = serve
+    mark("phase 5 done")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # 6. training phase
         report["train"] = train = train_phase(dev, card, cycles_per_ms, rng, tmp)
+        mark("phase 6 done")
         # 7. serving entry points, on the run dir phase 6 wrote
         checked = {(r["kernel"], tuple(r["shape"]), r["cout"]) for r in results + train["kernel_checks"]
                    if r["dtype"] == "bfloat16"}
         report["serve_entry_points"], entry_counts = serve_entry_phase(
             dev, card, train["run_dir"], tmp, mix, (m_gpu, m_cpu), rng, checked)
+        mark("phase 7 done")
         # 8. the enhancement recipe
         checked |= {(r["kernel"], tuple(r["shape"]), r["cout"])
                     for r in report["serve_entry_points"]["kernel_checks"]}
         report["enhance"], enh_counts = enhance_phase(dev, card, cycles_per_ms, tmp, (m_gpu, m_cpu), checked)
+        mark("phase 8 done")
         # 9. distillation and the export artifact, on the run dir of phase 6
         checked |= {(r["kernel"], tuple(r["shape"]), r["cout"]) for r in report["enhance"]["kernel_checks"]}
         report["distill"], dist_counts = distill_phase(dev, card, train["run_dir"], tmp, (m_gpu, m_cpu), checked)
+        mark("phase 9 done")
         # 10. data parallelism and multi-device evaluation
         checked |= {(r["kernel"], tuple(r["shape"]), r["cout"]) for r in report["distill"]["kernel_checks"]}
         report["ddp"], ddp_counts = ddp_phase(dev, card, tmp, train["run_dir"], Path(tmp) / "wsj0_mix", checked)
@@ -3865,8 +4011,13 @@ def main() -> int:
         # 14. the legacy blocks, the figures CLI, the native decoder
         report["legacy"], legacy_counts = legacy_phase(dev, card, cycles_per_ms, tmp, train["run_dir"],
                                                        Path(tmp) / "wsj0_mix")
+    mark("phases 10-14 done")
     # 15. the separation learning demo
     report["demo"], demo_counts = demo_phase(dev, card, cycles_per_ms)
+    # 16. the enhancement learning demo and its distillation
+    report["demo_nr"], demo_nr_counts = demo_nr_phase(
+        dev, card, cycles_per_ms, {(r["kernel"], tuple(r["shape"]), r["cout"]) for r in report["demo"]["kernel_checks"]})
+    mark("phase 16 done")
 
     # summary per kernel: the bf16 (serving) times summed over one score
     # evaluation's launches at batch 2 (the same in float32 apart, with the
@@ -3890,7 +4041,8 @@ def main() -> int:
         option_rows = [r for r in report["options"]["kernel_checks"] if r["kernel"] == k]
         slice12_rows = [r for r in report["slice12"]["kernel_checks"] if r["kernel"] == k]
         legacy_rows = [r for r in report["legacy"]["kernel_checks"] if r["kernel"] == k]
-        demo_rows = [r for r in report["demo"]["kernel_checks"] if r["kernel"] == k]
+        demo_rows = [r for r in report["demo"]["kernel_checks"] + report["demo_nr"]["kernel_checks"]
+                     if r["kernel"] == k]
         figure_counts = report["legacy"]["reverse_diffusion_example"]["launches"]
         if k == "fir_up2x":  # the down's backward at odd sizes runs the up kernel
             enh_rows += report["enhance"]["odd_fir_backward"]
@@ -3907,7 +4059,7 @@ def main() -> int:
             name=k, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=(serve_counts[k] + train["launches"][k] + entry_counts[k] + enh_counts[k] + dist_counts[k]
                       + ddp_counts[k] + option_counts[k] + slice12_counts[k] + legacy_counts.get(k, 0)
-                      + demo_counts[k]),
+                      + demo_counts[k] + demo_nr_counts[k]),
             max_abs_err=max(r["max_abs_err"] for r in rows + tr + entry_rows + enh_rows + dist_rows + ddp_rows
                             + option_rows + slice12_rows + legacy_rows + demo_rows),
             ms=per_eval_sum("ms"), plain_ms=per_eval_sum("plain_ms"),
@@ -3924,8 +4076,13 @@ def main() -> int:
                               "fsdp, tp=2, three speakers, tools (phase 13)": slice12_counts[k],
                               "legacy blocks (phase 14)": legacy_counts.get(k, 0) - figure_counts[k],
                               "figures reverse_diffusion_example (phase 14)": figure_counts[k],
-                              "learning demo, training and evaluation (phase 15)": demo_counts[k]},
+                              "learning demo, training and evaluation (phase 15)": demo_counts[k],
+                              "enhancement demo, training, distillation and students (phase 16)":
+                                  demo_nr_counts[k]},
             launches_per_demo_step={"forward": DEMO_PER_STEP[k][0], "backward": DEMO_PER_STEP[k][1]},
+            launches_per_nr_demo_step={"forward": NR_PER_STEP[k][0], "backward": NR_PER_STEP[k][1]},
+            launches_per_nr_distill_step={"forward": NR_DISTILL_PER_STEP[k][0],
+                                          "backward": NR_DISTILL_PER_STEP[k][1]},
             demo_launches_per_step_by_plan=report["demo"]["conv_launches_per_step_by_plan"] if k == "conv3x3"
             else None,
             demo_ms_per_step=report["demo"]["ms_per_step"][k],

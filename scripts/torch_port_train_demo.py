@@ -47,6 +47,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import numpy as np
 
@@ -63,6 +64,20 @@ PC_N, FAST_N, SWEEP = 30, 6, (("ddim", "dpmpp"), (4, 6, 8))
 BAR = {"si_sdr_separated_db": {"each": 24.8, "mean": 24.9},
        "si_sdr_ddim_n6_db": {"each": 15.0},
        "si_sdr_mixture_floor_db": {"abs": 0.01}}
+
+
+class Recipe(NamedTuple):
+    """What a learning demo trains and how it scores a seed:
+    ``build(dtype, remat, device, seed, nf)`` the model, ``make(rng, b, n)``
+    a batch (noisy or mixture, target), ``score(model, state, mix_te,
+    tgt_te)`` the record's metrics and the score evaluations they took;
+    ``sizes`` and ``tiny`` the nf, batch, samples and held-out clips of a
+    run and of ``--tiny``."""
+    build: Callable
+    make: Callable
+    score: Callable
+    sizes: dict
+    tiny: dict
 
 
 def make_batch(rng, b, n, fs=FS):
@@ -104,11 +119,11 @@ def build_model(dtype="bfloat16", remat=False, device=None, seed=0, nf=NF):
     return DiffSepModel(compose(demo_overrides(dtype, remat, nf)), device=device, seed=seed)
 
 
-def train(model, seed, steps, rng, b=BATCH, n=SAMPLES, log=print, draws=None):
-    """``steps`` train steps on batches of ``make_batch(rng, b, n)``, after
-    the one batch the JAX script draws for its init example. The host waits
-    for the card only where the JAX script does: at step 0 and every 100
-    steps. ``draws(i)``, where given, hands step i's loss its draws (see
+def train(model, seed, steps, rng, b=BATCH, n=SAMPLES, log=print, draws=None, make=make_batch):
+    """``steps`` train steps on batches of ``make(rng, b, n)`` (this demo's
+    ``make_batch`` unless given), after the one batch the JAX script draws
+    for its init example. The host waits for the card only where the JAX
+    script does: at step 0 and every 100 steps. ``draws(i)``, where given, hands step i's loss its draws (see
     ``losses.Draws``). Returns the train state, every step's loss, and the
     hand kernels' launches over the steps (cumulative at every 100th)."""
     import torch
@@ -117,7 +132,7 @@ def train(model, seed, steps, rng, b=BATCH, n=SAMPLES, log=print, draws=None):
     from diffsep_tpu_torch.train.loop import to_device
 
     dev = model.device
-    make_batch(rng, b, n)  # the JAX script's init example: keeps the data stream aligned
+    make(rng, b, n)  # the JAX script's init example: keeps the data stream aligned
     state = model.init_state()
     step_fn = model.make_train_step(1000 * seed + 1)
     losses = torch.empty(steps, device=dev)
@@ -125,7 +140,7 @@ def train(model, seed, steps, rng, b=BATCH, n=SAMPLES, log=print, draws=None):
     _build.reset_counts()
     t0 = time.perf_counter()
     for i in range(steps):
-        mix, tgt = make_batch(rng, b, n)
+        mix, tgt = make(rng, b, n)
         metrics = step_fn(state, to_device(mix, dev), to_device(tgt, dev),
                           draws=None if draws is None else draws(i))
         losses[i] = metrics["train/score_loss"]
@@ -189,6 +204,10 @@ def evaluate(model, state, mix_te, tgt_te, noise=None):
     }, nfe_total
 
 
+SEPARATION = Recipe(build_model, make_batch, evaluate,
+                    {"nf": NF, "batch": BATCH, "samples": SAMPLES, "heldout": HELDOUT_BATCH}, TINY)
+
+
 def card_name(device):
     """The card's name and power limit as nvidia-smi gives them; None off
     the card."""
@@ -203,19 +222,22 @@ def card_name(device):
     ).stdout.strip()
 
 
-def run_seed(steps, seed, dtype="bfloat16", remat=False, device=None, tiny=False, log=print):
-    """One seed's training and evaluation. Returns (record, model, state)."""
+def run_seed(steps, seed, dtype="bfloat16", remat=False, device=None, tiny=False, log=print, recipe=None):
+    """One seed's training and evaluation of ``recipe`` (this demo's,
+    ``SEPARATION``, unless given). Returns (record, model, state)."""
     import torch
 
-    sizes = TINY if tiny else {"nf": NF, "batch": BATCH, "samples": SAMPLES, "heldout": HELDOUT_BATCH}
-    model = build_model(dtype, remat, device, seed, nf=sizes["nf"])
+    recipe = recipe or SEPARATION
+    sizes = recipe.tiny if tiny else recipe.sizes
+    model = recipe.build(dtype, remat, device, seed, nf=sizes["nf"])
     dev = model.device
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    run = train(model, seed, steps, np.random.default_rng(seed), sizes["batch"], sizes["samples"], log=log)
-    mix_te, tgt_te = make_batch(np.random.default_rng(HELDOUT_SEED), sizes["heldout"], sizes["samples"])
+    run = train(model, seed, steps, np.random.default_rng(seed), sizes["batch"], sizes["samples"], log=log,
+                make=recipe.make)
+    mix_te, tgt_te = recipe.make(np.random.default_rng(HELDOUT_SEED), sizes["heldout"], sizes["samples"])
     t0 = time.perf_counter()
-    metrics, nfe = evaluate(model, run["state"], mix_te, tgt_te)
+    metrics, nfe = recipe.score(model, run["state"], mix_te, tgt_te)
     eval_s = time.perf_counter() - t0
     losses = run["losses"]
     record = {
@@ -240,7 +262,7 @@ def run_seed(steps, seed, dtype="bfloat16", remat=False, device=None, tiny=False
         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None,
     }
     if tiny:
-        record["tiny"] = TINY
+        record["tiny"] = recipe.tiny
     return record, model, run["state"]
 
 
@@ -294,35 +316,44 @@ def aggregate(records, keep_keys):
     return out
 
 
-def check_bar(agg):
-    """Each metric of ``BAR`` against the aggregate: {metric: met}."""
+def check_bar(records, bar=BAR):
+    """Each metric of ``bar`` against the seed records: {metric: met}. A
+    metric's bar is a least value for each seed (``each``) and for their
+    mean (``mean``), or a value (0 unless given) to within ``abs``."""
     met = {}
-    for key, bar in BAR.items():
-        a = agg[key]
+    for key, b in bar.items():
+        vals = [float(r[key]) for r in records]
         ok = True
-        if "each" in bar:
-            ok &= a["min"] >= bar["each"]
-        if "mean" in bar:
-            ok &= a["mean"] >= bar["mean"]
-        if "abs" in bar:
-            ok &= max(abs(a["min"]), abs(a["max"])) <= bar["abs"]
+        if "each" in b:
+            ok &= min(vals) >= b["each"]
+        if "mean" in b:
+            ok &= sum(vals) / len(vals) >= b["mean"]
+        if "abs" in b:
+            ok &= max(abs(v - b.get("value", 0.0)) for v in vals) <= b["abs"] + 1e-9
         met[key] = bool(ok)
     return met
 
 
-def spread_record(records, steps):
-    agg = aggregate([add_derived_deltas(r) for r in records], lambda k: k.startswith("si_sdr_"))
+def spread_record(records, steps, bar=BAR, keep=lambda k: k.startswith("si_sdr_")):
+    """The seeds' spread of every metric ``keep`` selects, with the run's
+    card, speed and memory, and ``bar`` checked on the records."""
+    records = [add_derived_deltas(r) for r in records]
+    agg = aggregate(records, keep)
     agg["train_steps"] = steps
     agg["card"] = [r["card"] for r in records]
     agg["s_per_step"] = [r["s_per_step"] for r in records]
     agg["launches_per_step"] = records[0]["launches_per_step"]
-    agg["bar"] = BAR
-    agg["bar_met"] = check_bar(agg)
+    agg["peak_mem_gib"] = [r.get("peak_mem_gib") for r in records]
+    agg["bar"] = bar
+    agg["bar_met"] = check_bar(records, bar)
     return agg
 
 
-def run_seeds(args, seeds):
-    """Every seed in a process of its own, all at once; then the spread."""
+def run_seeds(args, seeds, script=__file__, prefix="torch_port_train_demo", spread=spread_record, extra=None):
+    """Every seed in a process of its own, all at once, running ``script``
+    with the shared flags (and ``extra(seed)``'s); its records are
+    DIR/{prefix}_seed{S}.json. Then the spread, ``spread(records, steps)``,
+    as DIR/{prefix}_spread.json."""
     import torch
 
     out_dir = Path(args.out_dir)
@@ -331,10 +362,10 @@ def run_seeds(args, seeds):
     procs = []
     try:
         for i, seed in enumerate(seeds):
-            out = out_dir / f"torch_port_train_demo_seed{seed}.json"
-            cmd = [sys.executable, str(Path(__file__).resolve()), str(args.steps), "--seed", str(seed),
+            out = out_dir / f"{prefix}_seed{seed}.json"
+            cmd = [sys.executable, str(Path(script).resolve()), str(args.steps), "--seed", str(seed),
                    "--dtype", args.dtype, "--out", str(out)]
-            cmd += ["--remat"] * args.remat + ["--tiny"] * args.tiny
+            cmd += ["--remat"] * args.remat + ["--tiny"] * args.tiny + (extra(seed) if extra else [])
             device = args.device or (f"cuda:{i % cards}" if cards > 1 else None)
             cmd += ["--device", device] if device else []
             procs.append((seed, out, subprocess.Popen(cmd)))
@@ -347,8 +378,8 @@ def run_seeds(args, seeds):
     if failed:
         raise SystemExit(f"seeds {failed} failed")
     records = [json.loads(out.read_text()) for _, out, _ in procs]
-    agg = spread_record(records, args.steps)
-    (out_dir / "torch_port_train_demo_spread.json").write_text(json.dumps(agg, indent=2))
+    agg = spread(records, args.steps)
+    (out_dir / f"{prefix}_spread.json").write_text(json.dumps(agg, indent=2))
     print(json.dumps(agg), flush=True)
     return agg
 

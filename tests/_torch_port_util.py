@@ -46,6 +46,14 @@ JAX_TINY_OVERRIDES = [
 SCRIPTS = Path(__file__).resolve().parents[1] / "scripts"
 
 
+def without_targets(node):
+    """A composed config node without its ``_target_`` keys (class paths,
+    which name each package's own classes), lists for tuples."""
+    if isinstance(node, dict):
+        return {k: without_targets(v) for k, v in node.items() if k != "_target_"}
+    return list(node) if isinstance(node, (list, tuple)) else node
+
+
 def load_script(name: str):
     """``scripts/<name>.py`` as a module, loaded by path. The JAX package's
     demo scripts enable JAX's compile cache when imported: it stays off
@@ -56,6 +64,12 @@ def load_script(name: str):
     with mock.patch.dict(os.environ, {"DIFFSEP_CACHE_DIR": "0"}):
         spec.loader.exec_module(mod)
     return mod
+
+
+# the JAX package's sampler and loss draws in the port's layout
+_draws = load_script("jax_draws")
+jax_pc_noise, jax_loss_draws, jax_distill_draws = (
+    _draws.jax_pc_noise, _draws.jax_loss_draws, _draws.jax_distill_draws)
 
 
 PORT_TINY_CONFIG = {
@@ -113,95 +127,6 @@ def random_params(model, rng: np.random.Generator, n_samples: int = 1000):
 
 def load_port_weights(module: torch.nn.Module, params) -> None:
     module.load_state_dict(state_dict_from_jax(params), strict=True)
-
-
-def jax_pc_noise(key, shape, N: int, corrector_steps: int = 1):
-    """The standard-normal draws diffsep_tpu's pc_sample makes from `key`,
-    in the layout of diffsep_tpu_torch's `noise` argument: the prior from
-    split(key) (pc.py), per step split(key, N) -> split(k) -> (kc, kp); the
-    corrector draws normal(fold_in(kc, i)), the predictor normal(kp)."""
-    key, prior_key = jax.random.split(key)
-    noise = {"prior": np.array(jax.random.normal(prior_key, shape, jnp.float32))}
-    corr, pred = [], []
-    for k in jax.random.split(key, N):
-        kc, kp = jax.random.split(k)
-        corr.append([
-            np.asarray(jax.random.normal(jax.random.fold_in(kc, i), shape, jnp.float32))
-            for i in range(corrector_steps)
-        ])
-        pred.append(np.asarray(jax.random.normal(kp, shape, jnp.float32)))
-    noise["corrector"] = np.asarray(corr, np.float32)
-    noise["predictor"] = np.asarray(pred, np.float32)
-    return {k: torch.from_numpy(v) for k, v in noise.items()}
-
-
-def jax_loss_draws(key, shape, init_hack=False, order="random"):
-    """The draws diffsep_tpu's training_loss makes from `key` for a target of
-    `shape` (batch, n_src, samples), under the names of
-    diffsep_tpu_torch.train.losses.Draws: the key splits of
-    diffsep_tpu/train/losses.py replayed (training_loss :518, sample_prior
-    :172-180, compute_score_loss_with_pit :253-266, _masked_init_step
-    :366-405), each primitive drawn as it draws it. The time draw is the
-    uniform in [0, 1) from which uniform(minval, maxval) and the varprop
-    inverse CDF both start."""
-    import math
-
-    b, n, _ = shape
-    draws = {}
-
-    def time_z(kt, kz):
-        draws["time"] = jax.random.uniform(kt, (b,))
-        draws["z"] = jax.random.normal(kz, shape, jnp.float32)
-
-    def sel(ks):
-        draws["sel"] = jax.random.randint(ks, (b,), 0, math.factorial(n))
-
-    if init_hack in (5, 6, 7):
-        k_mask, k_init, k_reg, k_shuf = jax.random.split(key, 4)
-        draws["mask"] = jax.random.uniform(k_mask, (b,))
-        draws["z0"] = jax.random.normal(k_init, shape, jnp.float32)
-        draws["shuffle"] = jax.random.uniform(k_shuf, (b, n))
-        if init_hack == 6:
-            kt, kz, ks = jax.random.split(k_reg, 3)
-            sel(ks)
-        else:
-            kt, kz = jax.random.split(k_reg)
-        time_z(kt, kz)
-    elif order == "pit":
-        kt, kz, ks = jax.random.split(key, 3)
-        time_z(kt, kz)
-        sel(ks)
-    else:
-        k_ord, key = jax.random.split(key)
-        if order == "random":
-            draws["shuffle"] = jax.random.uniform(k_ord, (b, n))
-        kt, kz = jax.random.split(key)
-        time_z(kt, kz)
-        if init_hack == 4:
-            draws["select"] = jax.random.uniform(jax.random.split(kz)[0], (b,))
-    return {k: np.array(v) for k, v in draws.items()}
-
-
-def jax_distill_draws(key, cfg, shape):
-    """The draws diffsep_tpu's distill_loss makes from ``key`` for a target of
-    ``shape``, under the names of the port's ``Draws``: its key splits
-    (distill.py:202-234) replayed."""
-    b, n_src, _ = shape
-    draws = {}
-    if cfg.source_order == "random":
-        key, ko = jax.random.split(key)
-        draws["shuffle"] = jax.random.uniform(ko, (b, n_src))
-    ki, kz, kp = jax.random.split(key, 3)
-    draws["i"] = jax.random.randint(ki, (b,), 0, cfg.n_student)
-    draws["z"] = jax.random.normal(kz, shape, jnp.float32)
-    if cfg.prior_mix_at_T > 0.0:
-        kp, kp2 = jax.random.split(kp)
-        draws["use_prior"] = jax.random.uniform(kp2, (b,))
-    if cfg.on_policy_frac > 0.0:
-        ko, kb = jax.random.split(jax.random.fold_in(kp, 1))
-        draws["onpol_prior"] = jax.random.normal(ko, shape, jnp.float32)
-        draws["use_onpol"] = jax.random.uniform(kb, (b,))
-    return {k: np.array(v) for k, v in draws.items()}
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -23,7 +23,7 @@ import types
 import numpy as np
 import pytest
 
-from _torch_port_util import SCRIPTS, load_script
+from _torch_port_util import SCRIPTS, load_script, without_targets
 from _torch_port_util import one_torch_thread  # noqa: F401  (autouse)
 from diffsep_tpu.config import compose as jax_compose
 from diffsep_tpu.model import DiffSepModel as JaxDiffSepModel
@@ -56,12 +56,6 @@ def test_make_batch_is_the_jax_scripts_bit_for_bit(scripts, seed, b, calls):
         assert np.array_equal(mp, mj) and np.array_equal(tp, tj)
 
 
-def _without_targets(node):
-    if isinstance(node, dict):
-        return {k: _without_targets(v) for k, v in node.items() if k != "_target_"}
-    return list(node) if isinstance(node, (list, tuple)) else node
-
-
 @pytest.mark.parametrize("dtype,remat", [("bfloat16", False), ("float32", True)])
 def test_demo_config_is_the_jax_scripts(scripts, dtype, remat):
     from diffsep_tpu_torch.config.compose import compose
@@ -71,12 +65,12 @@ def test_demo_config_is_the_jax_scripts(scripts, dtype, remat):
     jcfg, pcfg = jax_compose(overrides), compose(overrides)
     jm, pm = jcfg.model, pcfg["model"]
     for key in ("backbone_args", "stft_args"):
-        assert _without_targets(pm["score_model"][key]) == _without_targets(jm.score_model[key]), key
+        assert without_targets(pm["score_model"][key]) == without_targets(jm.score_model[key]), key
     for key in ("transform", "spec_abs_exponent", "spec_factor", "spec_trans_learnable", "num_sources"):
         assert pm["score_model"][key] == jm.score_model[key], key
     for key in ("sde", "sampler", "optimizer", "grad_clipper", "t_eps", "ema_decay", "train_source_order",
                 "init_hack", "lr_warmup", "scheduler", "time_sampling_strategy"):
-        assert _without_targets(pm[key]) == _without_targets(jm[key]), key
+        assert without_targets(pm[key]) == without_targets(jm[key]), key
     assert pcfg["trainer"]["accumulate_grad_batches"] == jcfg.trainer.accumulate_grad_batches == 1
     jmodel = JaxDiffSepModel(jcfg)
     pmodel = scripts.port.build_model(dtype, remat, "cpu", seed=0)
