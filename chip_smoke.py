@@ -5,7 +5,11 @@ are).
 
     python3 chip_smoke.py [--report PATH]
 
-Phases, each of which fails the run on any error:
+Phases, each of which fails the run on any error. Phases 12, 15, 16 and
+11 run in that order in a process of their own (``--side``), started once
+phase 6 has written its folder and running beside phases 7-10, 13 and 14;
+its log is printed after phase 14, and its failure fails the run at the next
+phase boundary:
   1. build the hand-written kernels of diffsep_tpu_torch/csrc with nvcc;
   2. find the kernel shapes of one flagship score evaluation (NCSN++
      nf=128, bf16, batch 2 x 5 s at 8 kHz) by running it once;
@@ -40,11 +44,11 @@ Phases, each of which fails the run on any error:
   7. serving entry points, on the run dir of phase 6 loaded with its EMA
      weights by cli.loading.load_model: HTTPSeparationServer over a
      SeparationEngine (batch 4, 1 s buckets, reverse_diffusion + ald2 at
-     N=30) takes 12 concurrent requests of seeded 3-6 s lengths and 2 bad
+     N=CHECK_N) takes 12 concurrent requests of seeded 3-6 s lengths and 2 bad
      ones (stereo, 16 kHz); every good one must come back 200 with 2
      finite channels at its own length, the bad ones 4xx, with no
      connection reset, /metrics must count them, and the launches must be
-     the per-evaluation counts x 60 x the sampler runs. Then cli.serve's
+     the per-evaluation counts x 2 CHECK_N x the sampler runs. Then cli.serve's
      stdin loop in a process of its own (4 paths in one write, ddim N=6),
      separate_streaming on a 20 s mixture (5 s chunks, batch 8), and every
      new sampler (euler_maruyama, heun, dpmpp, langevin, ald, denoise off,
@@ -57,8 +61,8 @@ Phases, each of which fails the run on any error:
      batch 4 x 3 s at 16 kHz, accumulate 4, init hack 4) trains through
      cli.train.main on a seeded synthetic VCTK-DEMAND folder for
      ENH_WARMUP + ENH_TIMED micro-steps, validates once (val/si_sdr,
-     val/pesq), writes a checkpoint and scores the test split (test=true);
-     then cli.evaluate --enhance --test --save-n 0 and cli.separate (16 kHz
+     val/pesq), writes a checkpoint and scores the test split (test=true;
+     the run's sampler at N=CHECK_N); then cli.evaluate --enhance --test --save-n 0 and cli.separate (16 kHz
      files) on its run dir. Every loss must be finite, every micro-step
      must launch TRAIN_PER_STEP kernels and every other run PER_EVAL x its
      evaluations, the result JSON must have the JAX CLI's schema with
@@ -88,8 +92,9 @@ Phases, each of which fails the run on any error:
      over gloo on the one card), train the recipe through cli.train.train
      and train.loop.fit (nf=128, bf16, DDP_BATCH rows each, accumulate 2,
      DDP_STEPS micro-steps, one validation, one checkpoint, test=true on
-     DDP_TEST files): the ranks must be bit-identical after every optimizer
-     step, rank 0 the only writer, the test records merged in order, every
+     DDP_TEST files, the sampler at N=CHECK_N): the ranks must be
+     bit-identical after every optimizer step, rank 0 the only writer, the
+     test records merged in order, every
      micro-step of every rank must launch TRAIN_PER_STEP kernels; ms per
      micro-step, global samples/s and peak memory per rank are recorded.
      The ranks then take the nf=32 float32 model's train step (two
@@ -100,10 +105,10 @@ Phases, each of which fails the run on any error:
      after its third micro-step must save a checkpoint at its step and
      resume from it, here with trainer.profiler=true (a trace under the run
      dir); and cli.evaluate_mp on phase 6's run dir (-d with two workers,
-     N=30, files of 5 s), per utterance (one file per worker) and with
+     N=CHECK_N, files of 5 s), per utterance (one file per worker) and with
      --batch-size EVAL_MP_BATCH on EVAL_MP_FILES files, then one worker the
      same ways (per utterance on half the files), records merged in index
-     order, launches exactly PER_EVAL x 60 x
+     order, launches exactly PER_EVAL x 2 CHECK_N x
      the sampler runs, seconds per utterance recorded. Every new
      kernel shape of these runs is held against its plain version in bf16.
  11. the DiffuSE recipe (model=diffuse: a 30-layer x 64-channel WaveNet on
@@ -125,7 +130,7 @@ Phases, each of which fails the run on any error:
      every new kernel call held against its plain version, device ms, host
      ms and idle share; each set at nf=32 in float32, card against CPU
      (1e-3 of scale) and kernels against plain (2e-5); sets A and C
-     separate at N=30 and ddim N=6 (utt/s, peak); set C through
+     separate at N=CHECK_N and ddim N=6 (utt/s, peak); set C through
      cli.export_model (ddim N=ART_N) held to the live separate_masked and
      served by cli.separate --model ARTIFACT; the f32 fallback recipe
      (dtype=float32, remat=true) through cli.train.main at 6 x 5 s for
@@ -146,7 +151,7 @@ Phases, each of which fails the run on any error:
      beside DDP's, the last validation equal to the gathered one-process
      model's (FSDP_TOL), the fsdp checkpoint separating a mixture in one
      process; tensor-parallel separation (make_tp_separate, tp=2 over the
-     two ranks) of one 5 s mixture with ddim + none at TP_N against the
+     same two rank processes, after their fits) of one 5 s mixture with ddim + none at TP_N against the
      replicated separation of the same seed (TP_TOL of scale), launches per
      rank exact, seconds per utterance of each; n_speakers=3 at full width,
      one evaluation and a ddim separation, launches exact; every kernel
@@ -172,7 +177,7 @@ Phases, each of which fails the run on any error:
      (LEGACY_CPU_TOL of scale); cli.figures reverse_diffusion_example on
      phase 6's run dir and its folder's cv split at N = FIG_N with save_fig
      captured (no matplotlib there): intermediates (30, 2, 1, 2, T) finite,
-     launches PER_EVAL x 60, the sources bit for bit get_pc_sampler's with
+     launches PER_EVAL x 2 FIG_N, the sources bit for bit get_pc_sampler's with
      the same seed, seconds recorded; the C++ WAV decoder
      (data/native_io.py) built there, bit for bit scipy over phase 6's
      folder, the loader at the recipe's batch (6 rows x 3 files) on the
@@ -193,7 +198,14 @@ Phases, each of which fails the run on any error:
      shape of both runs held against its plain version and timed beside
      cuDNN and the bound (each shape's share of it logged), summed per step
      by kernel, by conv plan and by input channels (the stem, Cin 32 and 96,
-     both); s per step.
+     both); s per step. Then the distillation of
+     scripts/torch_port_distill_demo.py from the EMA weights (its batch
+     stream, a fresh batch every step; stages DEMO_DISTILL_STAGES of
+     DEMO_DISTILL_STEPS steps on the linear grid): DEMO_DISTILL_PER_STEP
+     launches in every step, each student's ddim SI-SDR on the held-out
+     set at its N finite, N x DEMO_PER_STEP's forward launches per
+     evaluation; every kernel shape of these runs held as those above; s
+     per distill step.
  16. the enhancement learning demo (scripts/torch_port_train_demo_nr.py:
      model=nr, PriorMixSDE, init_hack 4, the same widths and grid as phase
      15's at batch 16 x 1 s, 16 kHz) trains NR_STEPS steps at seed 0
@@ -205,8 +217,12 @@ Phases, each of which fails the run on any error:
      scripts/torch_port_distill_demo_nr.py from the EMA weights, stages
      NR_DISTILL_STAGES of NR_DISTILL_STEPS steps each, NR_DISTILL_PER_STEP
      launches in every step, and each student's ddim SI-SDR on the held-out
-     clips finite; every kernel shape of these runs that phase 15 did not
-     hold, held against its plain version; s per step and per distill step.
+     clips finite, N x NR_PER_STEP's forward launches per evaluation
+     (both phases' distillation is one helper, ``smoke_distill``); every
+     kernel shape of these runs that phase 15 did not hold, held against
+     its plain version; s per step and per distill step. The times of
+     phases 7-16 are read with the other process's phases running on the
+     same card.
 
 The last lines are the `{"kernels": [...]}` summary, then
 `{"ok": true, "device": {...}}`. With --report, every result (per shape,
@@ -238,6 +254,8 @@ TF32_FLOPS = 495e12  # H100 SXM dense TF32: the "tf32x3" conv does 3 TF32 produc
 HBM_BYTES_PER_S = 3.35e12
 SERVE_BATCH, SERVE_SECONDS, FS = 2, 5, 8000
 PER_EVAL = {"conv3x3": 106, "fir_down2x": 18, "fir_up2x": 18}  # flagship NCSN++ launches per score evaluation
+# a call slower than this is timed over 3 repetitions instead of 5
+SLOW_CALL_MS = 50.0
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}  # of max(1, max|plain|); see tests/test_torch_port_cuda.py
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED = 6, 2, 8  # the recipe's batch; micro-steps
 # launches per training micro-step, (forward, backward): the conv's backward
@@ -253,6 +271,11 @@ GRAD_TOL = {"kernels vs plain on the card": 1e-4, "card vs cpu": 1e-3}
 # of seeded lengths in seconds; the fast sampler of the stdin and streaming
 # runs; the steps of each new sampler's run
 PROD_N, PROD_NFE = 30, 60
+# the production sampler (reverse_diffusion + ald2) where a path runs it
+# again after phase 5 (the HTTP burst, the enhancement run and its CLIs, the
+# DDP fit, cli.evaluate_mp, option sets A and C, the figures CLI): the same
+# code at fewer steps, so that the script keeps within its time
+CHECK_N, CHECK_NFE = 6, 12
 HTTP_CLIENTS, HTTP_BATCH, HTTP_SECONDS = 12, 4, (3, 6)
 STDIN_N, STREAM_SECONDS, SAMPLER_N = 6, 20, 4
 SAMPLER_CASES = [  # (label, predictor or "ode", corrector, settings)
@@ -346,7 +369,7 @@ TP_N, TP_TOL, TOOLS_SAVE_N = 6, 1e-2, 2
 # width); the width and grid of their card-vs-CPU check and its tolerance
 # (of scale); the figure's sampler steps
 LEGACY_NGF, LEGACY_CLASSES, LEGACY_BATCH, LEGACY_GRID = 128, 232, 2, (256, 320)
-LEGACY_SMALL, LEGACY_CPU_TOL, FIG_N = (32, (32, 40)), 1e-3, 30
+LEGACY_SMALL, LEGACY_CPU_TOL, FIG_N = (32, (32, 40)), 1e-3, CHECK_N
 # phase 15: the separation learning demo at seed 0: its steps, and the bar on
 # its windowed mean losses (steps 201-300 against 1-10: the per-step loss is
 # noisy); its launches per step (forward, backward): conv 34 = stem + 2 x
@@ -355,6 +378,11 @@ LEGACY_SMALL, LEGACY_CPU_TOL, FIG_N = (32, (32, 40)), 1e-3, 30
 # up for every in-block down
 DEMO_STEPS, DEMO_LOSS_RATIO = 300, 0.7
 DEMO_PER_STEP = {"conv3x3": (34, 0), "fir_down2x": (6, 6), "fir_up2x": (6, 4)}
+# then the distillation from its EMA weights: stages, steps per stage, and
+# the launches per step: the teacher's two substeps and the student's
+# forward, one backward
+DEMO_DISTILL_STAGES, DEMO_DISTILL_STEPS = (4, 2), 5
+DEMO_DISTILL_PER_STEP = {k: (3 * f, b) for k, (f, b) in DEMO_PER_STEP.items()}
 # phase 16: the enhancement learning demo at seed 0, its steps (the bar of
 # phase 15 on the mean loss of its last 100 steps: the recipe's loss holds
 # near 0.85 of its start through about step 250, steps 201-300 at 0.750 of
@@ -367,7 +395,7 @@ DEMO_PER_STEP = {"conv3x3": (34, 0), "fir_down2x": (6, 6), "fir_up2x": (6, 4)}
 NR_STEPS, NR_PER_STEP = 400, DEMO_PER_STEP
 NR_FLOORS = {"si_sdr_noisy_floor_db": (8.98, 0.01), "pesq_wb_noisy_floor": (1.882, 0.001)}
 NR_DISTILL_STAGES, NR_DISTILL_STEPS, NR_DISTILL_POOL = (4, 2), 5, 4
-NR_DISTILL_PER_STEP = {k: (3 * f, b) for k, (f, b) in DEMO_PER_STEP.items()}
+NR_DISTILL_PER_STEP = DEMO_DISTILL_PER_STEP
 # device time by kernel name fragment (torch.profiler's kernel names)
 OPTION_GROUPS = (("hand conv3x3", ("conv3x3",)), ("hand FIR", ("fir2x",)),
                  ("cuDNN convs", ("dgrad", "wgrad", "cudnn", "xmma", "implicit_convolve", "conv2d")),
@@ -410,13 +438,13 @@ def sleep_cycles_per_ms():
 
 
 def time_ms(fn, cycles_per_ms):
-    """Median device time of one call, over 5 repetitions. 1 to 20 calls,
-    about 5 ms of work (one where a call takes longer: cuDNN's float32 convs
-    take up to 0.4 s at some flagship shapes), are queued behind a
-    device-side sleep that outlasts their enqueueing on the host, so they
-    run back to back between one pair of CUDA events: the host's launch
-    overhead stays out of the reading even where one call is shorter than
-    its enqueueing."""
+    """Median device time of one call, over 5 repetitions (3 where a call
+    takes over SLOW_CALL_MS: cuDNN's float32 convs take up to 0.4 s at some
+    flagship shapes). 1 to 20 calls, about 5 ms of work (one where a call
+    takes longer), are queued behind a device-side sleep that outlasts
+    their enqueueing on the host, so they run back to back between one pair
+    of CUDA events: the host's launch overhead stays out of the reading even
+    where one call is shorter than its enqueueing."""
     import torch
 
     fn()
@@ -424,15 +452,19 @@ def time_ms(fn, cycles_per_ms):
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    launches = max(1, min(20, int(5.0 / ((time.perf_counter() - t0) * 1e3))))
-    t0 = time.perf_counter()
-    for _ in range(launches):
-        fn()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    sleep_cycles = int(min(3 * enqueue_ms + 1.0, 100.0) * cycles_per_ms)
+    probe_ms = (time.perf_counter() - t0) * 1e3
+    launches = max(1, min(20, int(5.0 / probe_ms)))
+    if probe_ms > SLOW_CALL_MS:  # one call, its enqueueing a sliver of its run
+        reps, sleep_cycles = 3, int(1.0 * cycles_per_ms)
+    else:
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        reps, sleep_cycles = 5, int(min(3 * enqueue_ms + 1.0, 100.0) * cycles_per_ms)
     times = []
-    for _ in range(5):
+    for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(sleep_cycles)
         start.record()
@@ -944,7 +976,8 @@ def enhance_phase(dev, card, cycles_per_ms, tmp, small_pair, checked):
     data = write_vctk_demand(Path(tmp) / "vctk_demand", ENH_TRAIN, ENH_TEST, fs=ENH_FS, seed=0)
     steps = ENH_WARMUP + ENH_TIMED
     overrides = ["experiment=noise-reduction", f"path.datasets.valentini={data}", f"path.exp_root={tmp}/exp_nr",
-                 f"trainer.max_steps={steps}", "trainer.check_val_every_n_epoch=100", "test=true"]
+                 f"trainer.max_steps={steps}", "trainer.check_val_every_n_epoch=100", "test=true",
+                 f"model.sampler.N={CHECK_N}"]
     log(f"[enhance] python -m diffsep_tpu_torch.cli.train {' '.join(overrides)}")
     per_step = []
     torch.cuda.synchronize()
@@ -971,8 +1004,8 @@ def enhance_phase(dev, card, cycles_per_ms, tmp, small_pair, checked):
     assert np.isfinite(val["val/score_loss"]) and np.isfinite(val["val/si_sdr"]), val
     assert "val/pesq" in val or pesq_failed, (val, warned)
     # the run's evaluations: the validation's score loss (1 batch), its
-    # separation (N=30: 60) and the test split's
-    evals = 1 + PROD_NFE + sum(r["nfe"] for r in test_records)
+    # separation (CHECK_NFE) and the test split's
+    evals = 1 + CHECK_NFE + sum(r["nfe"] for r in test_records)
     counted("cli.train", {k: steps * want[k] + v * evals for k, v in PER_EVAL.items()})
     train_shapes = per_step[-1]["shapes"]
     out["train"] = dict(
@@ -988,7 +1021,7 @@ def enhance_phase(dev, card, cycles_per_ms, tmp, small_pair, checked):
     log(f"[enhance] validation: {val}; launches per micro-step {per_step[-1]['launches']}, of them backward "
         f"{per_step[-1]['backward']}")
     log(f"[enhance] test=true: {len(test_records)} utterances, {out['train']['test_s_per_utterance']:.3f} s per "
-        f"utterance (sampler, N={PROD_N}); summary {test_summary}")
+        f"utterance (sampler, N={CHECK_N}); summary {test_summary}")
 
     # cli.evaluate --enhance on the run dir
     eval_out = Path(tmp) / "eval_nr"
@@ -1016,17 +1049,17 @@ def enhance_phase(dev, card, cycles_per_ms, tmp, small_pair, checked):
         shutil.copy(f, sep_in / f.name)
     _build.reset_counts()
     t0 = time.perf_counter()
-    sep_cli.main([str(sep_in), str(sep_out), "--model", str(run_dir)])
+    sep_cli.main([str(sep_in), str(sep_out), "--model", str(run_dir), "-N", str(CHECK_N)])
     secs = time.perf_counter() - t0
-    got = counted("cli.separate", launches_of(PROD_NFE, ENH_SEP))
+    got = counted("cli.separate", launches_of(CHECK_NFE, ENH_SEP))
     for f in noisy:
         n = load_wav(f)[0].shape[-1]
         for src in range(2):
             est, fs = load_wav(sep_out / f"s{src}" / f.name)
             assert fs == ENH_FS and est.shape == (1, n) and np.isfinite(est).all(), (f.name, est.shape)
     out["separate"] = dict(files=len(noisy), seconds=secs, launches=got)
-    log(f"[enhance] cli.separate IN OUT --model RUN_DIR: {len(noisy)} files of 16 kHz, speech and noise "
-        f"at their own length, finite, {secs:.1f} s")
+    log(f"[enhance] cli.separate IN OUT --model RUN_DIR -N {CHECK_N}: {len(noisy)} files of 16 kHz, speech and "
+        f"noise at their own length, finite, {secs:.1f} s")
     logging.getLogger("diffsep_tpu_torch").removeHandler(grab)
     out["warnings"] = warned
     out["pesq_failures"] = dict(validation=len(pesq_failed), items_dropped=[m for m in warned if "PESQ dropped" in m],
@@ -1199,7 +1232,7 @@ def serve_entry_phase(dev, card, run_dir, tmp, mix, small_pair, rng, checked):
 
     # HTTP: a burst of concurrent clients, more than http.server's default
     # listen backlog, and two requests the engine must refuse
-    engine = SeparationEngine(model, batch=HTTP_BATCH, bucket_s=1.0, sampler_kwargs={"N": PROD_N})
+    engine = SeparationEngine(model, batch=HTTP_BATCH, bucket_s=1.0, sampler_kwargs={"N": CHECK_N})
     dispatch, finalize = engine._dispatch_bucket, engine._finalize_bucket
     runs_timed = []  # per sampler run: rows, host s in dispatch, card busy at its return, host s in finalize
 
@@ -1232,7 +1265,7 @@ def serve_entry_phase(dev, card, run_dir, tmp, mix, small_pair, rng, checked):
         results, wall = http_burst(srv.port, bodies)
         metrics = scrape_metrics(srv.port)
     runs = int(metrics["diffsep_batch_fill_count"])
-    launches = counted("http", launches_of(PROD_NFE, runs))
+    launches = counted("http", launches_of(CHECK_NFE, runs))
     ok_lat = [lat for status, _, lat, _ in results[:HTTP_CLIENTS] if status == 200]
     resets = [err for *_, err in results if err is not None]
     for w, (status, body, _, err) in zip(good, results):
@@ -1254,7 +1287,7 @@ def serve_entry_phase(dev, card, run_dir, tmp, mix, small_pair, rng, checked):
     out["http"] = http
     lat = {k: "n/a" if v is None else f"{v:.3f}" for k, v in http["latency_s"].items()}
     log(f"[serve7] http: {HTTP_CLIENTS} requests of {HTTP_SECONDS[0]}-{HTTP_SECONDS[1]} s + {len(bad)} bad, "
-        f"batch {HTTP_BATCH}, reverse_diffusion+ald2 N={PROD_N}: {http['requests_per_s']:.3f} requests/s, "
+        f"batch {HTTP_BATCH}, reverse_diffusion+ald2 N={CHECK_N}: {http['requests_per_s']:.3f} requests/s, "
         f"latency p50 {lat['p50']} p95 {lat['p95']} max {lat['max']} s, mean batch fill "
         f"{http['mean_batch_fill']:.2f}, {runs} program runs, peak {http['peak_mem_gib']:.2f} GiB, "
         f"{len(resets)} connection resets ({card})")
@@ -1862,7 +1895,8 @@ def ddp_phase(dev, card, tmp, run_dir, data, checked):
     overrides = ["experiment=icassp-separation", f"path.datasets.wsj0_mix={data10}",
                  f"path.exp_root={tmp}/exp_ddp", f"trainer.max_steps={DDP_STEPS}",
                  f"trainer.check_val_every_n_epoch={DDP_STEPS // 2}",
-                 f"datamodule.train.dl_opts.batch_size={DDP_BATCH}", "model.valid_max_sep_batches=1", "test=true"]
+                 f"datamodule.train.dl_opts.batch_size={DDP_BATCH}", "model.valid_max_sep_batches=1", "test=true",
+                 f"model.sampler.N={CHECK_N}"]
     log(f"[ddp] fit on {DDP_RANKS} ranks: cli.train.train {' '.join(overrides)}")
     ddp_dir = Path(tmp) / "ddp_reports"
     ddp_dir.mkdir()
@@ -1903,7 +1937,7 @@ def ddp_phase(dev, card, tmp, run_dir, data, checked):
     assert [len(p) for p in parts] == [DDP_TEST // DDP_RANKS] * DDP_RANKS
     assert [m["batch_idx"] for m in merged] == list(range(DDP_TEST))
     assert [m["len_s"] for m in merged] == [m["len_s"] for p in parts for m in p]
-    assert all(np.isfinite(np.mean(m["si_sdr"])) and m["nfe"] == PROD_NFE for m in merged), merged
+    assert all(np.isfinite(np.mean(m["si_sdr"])) and m["nfe"] == CHECK_NFE for m in merged), merged
     log(f"[ddp] ranks bit-identical after each of {len(reports[0]['digests'])} optimizer steps; one checkpoint, by "
         f"rank 0; test.json merged from parts of {[len(p) for p in parts]} in order")
 
@@ -2011,7 +2045,7 @@ def ddp_phase(dev, card, tmp, run_dir, data, checked):
              EVAL_MP_FILES // 2),
             (f"1 worker, --batch-size {EVAL_MP_BATCH}", ["0"], batched, EVAL_MP_FILES,
              -(-EVAL_MP_FILES // EVAL_MP_BATCH))):
-        argv = [str(run_dir), "-d", *d, "-N", str(PROD_N), "-o", str(Path(tmp) / "eval_mp"), *mode]
+        argv = [str(run_dir), "-d", *d, "-N", str(CHECK_N), "-o", str(Path(tmp) / "eval_mp"), *mode]
         torch.cuda.synchronize()
         _build.reset_counts()
         t0 = time.perf_counter()
@@ -2026,13 +2060,13 @@ def ddp_phase(dev, card, tmp, run_dir, data, checked):
         out["evaluate_mp"][label] = dict(wall_s=wall, s_per_utt_wall=wall / files,
                                          s_per_utt_runtime=float(np.mean(runtime)), runtime=runtime, runs=runs,
                                          launches=launches, dir=out_dir.name)
-        log(f"[ddp] cli.evaluate_mp RUN_DIR -d {' '.join(d)} -N {PROD_N} {' '.join(mode)} ({label}): {files} "
+        log(f"[ddp] cli.evaluate_mp RUN_DIR -d {' '.join(d)} -N {CHECK_N} {' '.join(mode)} ({label}): {files} "
             f"files of {SERVE_SECONDS} s in {wall:.1f} s with loading = {wall / files:.3f} s per utterance; "
             f"runtime per utterance {np.mean(runtime):.3f} s (min {min(runtime):.3f}, max {max(runtime):.3f}); "
             f"{runs} sampler runs, launches {launches} ({card})")
         assert list(records) == [str(i) for i in range(files)], list(records)
-        assert all(r["nfe"] == PROD_NFE and np.isfinite(np.mean(r["si_sdr"])) for r in records.values())
-        assert launches == {k: v * PROD_NFE * runs for k, v in PER_EVAL.items()}, launches
+        assert all(r["nfe"] == CHECK_NFE and np.isfinite(np.mean(r["si_sdr"])) for r in records.values())
+        assert launches == {k: v * CHECK_NFE * runs for k, v in PER_EVAL.items()}, launches
     # every kernel shape of these runs that earlier phases did not hold
     checks = []
     for i, (k, shape, cout) in enumerate(sorted(shapes - checked, key=str)):
@@ -2555,11 +2589,11 @@ def options_phase(dev, card, cycles_per_ms, tmp, data, checked):
             del model
         torch.cuda.empty_cache()
 
-    # c. separation with sets A and C: N=30 (reverse_diffusion + ald2) and
+    # c. separation with sets A and C: N=CHECK_N (reverse_diffusion + ald2) and
     # ddim N=6, 2 x 5 s
     sep_mix = 0.3 * mix
     for name in OPTION_SEPARATE:
-        for label, kw in [("reverse_diffusion+ald2 N=30", dict(N=30)),
+        for label, kw in [(f"reverse_diffusion+ald2 N={CHECK_N}", dict(N=CHECK_N)),
                           ("ddim+none N=6", dict(predictor_name="ddim", corrector_name="none", N=6))]:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -2834,14 +2868,47 @@ def _state_bytes(state):
                 ema=nbytes(state.ema.params))
 
 
+@contextlib.contextmanager
+def rank_group(rank, world, init_method, backend, card_index):
+    """This process as rank ``rank`` of ``world`` on card ``card_index``,
+    TF32 off; yields the card and destroys the process group after."""
+    import torch
+    import torch.distributed as dist
+
+    from diffsep_tpu_torch.utils.distributed import initialize_distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed(backend=backend, device_type="cuda", rank=rank, world_size=world,
+                           init_method=init_method, device_index=card_index)
+    try:
+        yield torch.device("cuda", card_index)
+    finally:
+        dist.destroy_process_group()
+
+
 def fsdp_worker(rank, world, init_method, backend, card_index, base, exp_root, out_dir):
-    """One rank of phase 13's FSDP check (a process of its own): the recipe
-    through ``cli.train.train`` with trainer.strategy ddp, then fsdp, on the
-    same rows; per fit the launches per micro-step, the bytes this rank
-    holds and its peak; for fsdp, each validation's metrics and, on rank 0,
-    the last one again with the gathered one-process model. Writes
-    <strategy>_rank<r>.json and, on rank 0, <strategy>_params.pt (the whole
-    parameters after the fit)."""
+    """One rank of phase 13's FSDP check (a process of its own); see
+    ``fsdp_fits``."""
+    with rank_group(rank, world, init_method, backend, card_index) as dev:
+        fsdp_fits(rank, dev, base, exp_root, out_dir)
+
+
+def fsdp_tp_worker(rank, world, init_method, backend, card_index, base, exp_root, out_dir, seed):
+    """One rank of phase 13's FSDP and tensor-parallel checks, one process
+    for both: ``fsdp_fits``, then ``tp_runs``."""
+    with rank_group(rank, world, init_method, backend, card_index) as dev:
+        fsdp_fits(rank, dev, base, exp_root, out_dir)
+        tp_runs(rank, world, dev, seed, out_dir)
+
+
+def fsdp_fits(rank, dev, base, exp_root, out_dir):
+    """The recipe through ``cli.train.train`` with trainer.strategy ddp, then
+    fsdp, on the same rows, on this rank of the process group; per fit the
+    launches per micro-step, the bytes this rank holds and its peak; for
+    fsdp, each validation's metrics and, on rank 0, the last one again with
+    the gathered one-process model. Writes <strategy>_rank<r>.json and, on
+    rank 0, <strategy>_params.pt (the whole parameters after the fit)."""
     import torch
     import torch.distributed as dist
 
@@ -2850,123 +2917,111 @@ def fsdp_worker(rank, world, init_method, backend, card_index, base, exp_root, o
     from diffsep_tpu_torch.model import DiffSepModel
     from diffsep_tpu_torch.ops import _build
     from diffsep_tpu_torch.train import loop
-    from diffsep_tpu_torch.utils.distributed import initialize_distributed
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda", card_index)
-    initialize_distributed(backend=backend, device_type="cuda", rank=rank, world_size=world,
-                           init_method=init_method, device_index=card_index)
     validate = loop.validate
-    try:
-        for strategy in ("ddp", "fsdp"):
-            per_step, held, vals = [], {}, []
-            counted = counting_train_step(per_step)
+    for strategy in ("ddp", "fsdp"):
+        per_step, held, vals = [], {}, []
+        counted = counting_train_step(per_step)
 
-            def make_step(self, seed, forward=None):
-                run = counted(self, seed, forward=forward)
+        def make_step(self, seed, forward=None):
+            run = counted(self, seed, forward=forward)
 
-                def step(state, *args, **kwargs):
-                    held.setdefault("bytes", _state_bytes(state))
-                    return run(state, *args, **kwargs)
+            def step(state, *args, **kwargs):
+                held.setdefault("bytes", _state_bytes(state))
+                return run(state, *args, **kwargs)
 
-                return step
+            return step
 
-            def recorded_validate(model, datamodule, state, val_loss_fn, sep_seed):
-                out = validate(model, datamodule, state, val_loss_fn, sep_seed)
-                vals.append(out)
-                held.update(model=model, datamodule=datamodule, sep_seed=sep_seed)
-                return out
+        def recorded_validate(model, datamodule, state, val_loss_fn, sep_seed):
+            out = validate(model, datamodule, state, val_loss_fn, sep_seed)
+            vals.append(out)
+            held.update(model=model, datamodule=datamodule, sep_seed=sep_seed)
+            return out
 
-            ov = [*base, f"trainer.strategy={strategy}", f"path.exp_root={exp_root}/{strategy}"]
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            _build.reset_counts()
-            with mock.patch.object(DiffSepModel, "make_train_step", make_step), \
-                    mock.patch.object(loop, "validate", recorded_validate):
-                state = train_cli.train(compose(ov), ov, str(dev))
-            torch.cuda.synchronize()
-            report = dict(rank=rank, strategy=strategy, step=state.step, bytes=held["bytes"], validations=vals,
-                          launches=dict(_build.launch_counts),
-                          shapes=[[k, list(shape), cout] for k, shape, cout in _build.launch_shapes],
-                          per_step=[dict(launches=s["launches"], backward=s["backward"], batch=s["batch"])
-                                    for s in per_step],
-                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-            if rank == 0:
-                model = held["model"]  # the one-process model fit handed back
-                torch.save({k: v.detach().cpu() for k, v in zip(state.names, state.params)},
-                           Path(out_dir) / f"{strategy}_params.pt")
-                if strategy == "fsdp":
-                    # fit's validation loss draws from seed + 1
-                    val_loss = model.make_val_loss(int(compose(ov).get("seed", 0)) + 1)
-                    report["gathered_validation"] = validate(model, held["datamodule"], state, val_loss,
-                                                             held["sep_seed"])
-            Path(out_dir, f"{strategy}_rank{rank}.json").write_text(json.dumps(report))
-            dist.barrier()
-    finally:
-        dist.destroy_process_group()
+        ov = [*base, f"trainer.strategy={strategy}", f"path.exp_root={exp_root}/{strategy}"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        with mock.patch.object(DiffSepModel, "make_train_step", make_step), \
+                mock.patch.object(loop, "validate", recorded_validate):
+            state = train_cli.train(compose(ov), ov, str(dev))
+        torch.cuda.synchronize()
+        report = dict(rank=rank, strategy=strategy, step=state.step, bytes=held["bytes"], validations=vals,
+                      launches=dict(_build.launch_counts),
+                      shapes=[[k, list(shape), cout] for k, shape, cout in _build.launch_shapes],
+                      per_step=[dict(launches=s["launches"], backward=s["backward"], batch=s["batch"])
+                                for s in per_step],
+                      peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if rank == 0:
+            model = held["model"]  # the one-process model fit handed back
+            torch.save({k: v.detach().cpu() for k, v in zip(state.names, state.params)},
+                       Path(out_dir) / f"{strategy}_params.pt")
+            if strategy == "fsdp":
+                # fit's validation loss draws from seed + 1
+                val_loss = model.make_val_loss(int(compose(ov).get("seed", 0)) + 1)
+                report["gathered_validation"] = validate(model, held["datamodule"], state, val_loss,
+                                                         held["sep_seed"])
+        Path(out_dir, f"{strategy}_rank{rank}.json").write_text(json.dumps(report))
+        dist.barrier()
 
 
 def tp_worker(rank, world, init_method, backend, card_index, seed, out_dir, dp=1):
-    """One rank of phase 13's tensor-parallel check: the flagship (seeded,
-    the same weights on every rank) separates ``dp`` 5 s mixtures (one per
-    dp group) with ddim + none at TP_N, replicated on rank 0 alone, then
-    over a (dp, world / dp) layout (``make_tp_separate``) twice, the second
-    timed; writes the estimates, launches, kernel shapes, times and peak to
-    tp_rank<r>.pt."""
+    """One rank of phase 13's tensor-parallel check (a process of its own);
+    see ``tp_runs``."""
+    with rank_group(rank, world, init_method, backend, card_index) as dev:
+        tp_runs(rank, world, dev, seed, out_dir, dp)
+
+
+def tp_runs(rank, world, dev, seed, out_dir, dp=1):
+    """The tensor-parallel check on this rank of the process group: the
+    flagship (seeded, the same weights on every rank) separates ``dp`` 5 s
+    mixtures (one per dp group) with ddim + none at TP_N, replicated on rank
+    0 alone, then over a (dp, world / dp) layout (``make_tp_separate``)
+    twice, the second timed; writes the estimates, launches, kernel shapes,
+    times and peak to tp_rank<r>.pt."""
     import torch
-    import torch.distributed as dist
 
     from diffsep_tpu_torch.model import DiffSepModel
     from diffsep_tpu_torch.ops import _build
     from diffsep_tpu_torch.parallel import mesh
     from diffsep_tpu_torch.parallel.tensor_parallel import make_tp_separate
-    from diffsep_tpu_torch.utils.distributed import initialize_distributed
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda", card_index)
-    initialize_distributed(backend=backend, device_type="cuda", rank=rank, world_size=world,
-                           init_method=init_method, device_index=card_index)
-    try:
-        kw = dict(predictor_name="ddim", corrector_name="none", N=TP_N)
-        model = DiffSepModel(device=dev, seed=0)
-        mix = torch.from_numpy(np.random.default_rng(seed).standard_normal((dp, 1, SERVE_SECONDS * FS))
-                               .astype(np.float32) * 0.1)
-        out = {}
-        if rank == 0:
-            for _ in range(2):  # the second timed
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                if dp == 1:
-                    ref, _ = model.separate(mix, generator=torch.Generator(device=dev).manual_seed(seed), **kw)
-                else:  # the whole batch's draws, as make_tp_separate draws them
-                    from diffsep_tpu_torch.parallel.tensor_parallel import _draw_noise
-
-                    noise = _draw_noise(model, dp, mix.shape[-1], torch.Generator(device=dev).manual_seed(seed),
-                                        model._sampler_kwargs(kw))
-                    ref, _ = model.separate(mix, noise=noise, **kw)
-                torch.cuda.synchronize()
-                out["replicated_s"] = time.perf_counter() - t0
-            out["replicated"] = ref.cpu()
-        mesh.barrier()
-        run = make_tp_separate(model, dp=dp, tp=world // dp, **kw)
-        out["weight_bytes"] = sum(p.numel() * p.element_size() for p in model.score_model.parameters())
-        torch.cuda.reset_peak_memory_stats()
-        for i in range(2):
-            mesh.barrier()
-            _build.reset_counts()
+    kw = dict(predictor_name="ddim", corrector_name="none", N=TP_N)
+    model = DiffSepModel(device=dev, seed=0)
+    mix = torch.from_numpy(np.random.default_rng(seed).standard_normal((dp, 1, SERVE_SECONDS * FS))
+                           .astype(np.float32) * 0.1)
+    out = {}
+    if rank == 0:
+        for _ in range(2):  # the second timed
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            est, nfe = run(torch.Generator(device=dev).manual_seed(seed), mix)
+            if dp == 1:
+                ref, _ = model.separate(mix, generator=torch.Generator(device=dev).manual_seed(seed), **kw)
+            else:  # the whole batch's draws, as make_tp_separate draws them
+                from diffsep_tpu_torch.parallel.tensor_parallel import _draw_noise
+
+                noise = _draw_noise(model, dp, mix.shape[-1], torch.Generator(device=dev).manual_seed(seed),
+                                    model._sampler_kwargs(kw))
+                ref, _ = model.separate(mix, noise=noise, **kw)
             torch.cuda.synchronize()
-            out[f"tp_s_{i}"] = time.perf_counter() - t0
-        out.update(est=est.cpu(), nfe=nfe, launches=dict(_build.launch_counts),
-                   shapes=[[k, list(s), c, n] for (k, s, c), n in _build.launch_shapes.items()],
-                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-        torch.save(out, Path(out_dir) / f"tp_rank{rank}.pt")
-    finally:
-        dist.destroy_process_group()
+            out["replicated_s"] = time.perf_counter() - t0
+        out["replicated"] = ref.cpu()
+    mesh.barrier()
+    run = make_tp_separate(model, dp=dp, tp=world // dp, **kw)
+    out["weight_bytes"] = sum(p.numel() * p.element_size() for p in model.score_model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2):
+        mesh.barrier()
+        _build.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est, nfe = run(torch.Generator(device=dev).manual_seed(seed), mix)
+        torch.cuda.synchronize()
+        out[f"tp_s_{i}"] = time.perf_counter() - t0
+    out.update(est=est.cpu(), nfe=nfe, launches=dict(_build.launch_counts),
+               shapes=[[k, list(s), c, n] for (k, s, c), n in _build.launch_shapes.items()],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    torch.save(out, Path(out_dir) / f"tp_rank{rank}.pt")
 
 
 def slice12_phase(dev, card, cycles_per_ms, tmp, run_dir, data, checked):
@@ -2995,14 +3050,14 @@ def slice12_phase(dev, card, cycles_per_ms, tmp, run_dir, data, checked):
             "trainer.check_val_every_n_epoch=1", f"datamodule.train.dl_opts.batch_size={FSDP_BATCH}",
             "model.valid_max_sep_batches=1", f"model.sampler.N={FSDP_VAL_N}"]
     log(f"[fsdp] 2 ranks on cards {cards} ({backend}): cli.train.train {' '.join(base)} with "
-        f"trainer.strategy=ddp, then fsdp")
+        f"trainer.strategy=ddp, then fsdp; then, in the same processes, the tensor-parallel separation (2.)")
     rep_dir = Path(tmp) / "fsdp_reports"
     rep_dir.mkdir()
     init_method = f"tcp://127.0.0.1:{free_port()}"
     t0 = time.perf_counter()
-    run_ranks(fsdp_worker, lambda r: (r, 2, init_method, backend, cards[r], base, f"{tmp}/exp_fsdp", str(rep_dir)),
-              2, 600)
-    out["fsdp_ranks_s"] = time.perf_counter() - t0
+    run_ranks(fsdp_tp_worker, lambda r: (r, 2, init_method, backend, cards[r], base, f"{tmp}/exp_fsdp", str(rep_dir),
+                                         31), 2, 600)
+    out["fsdp_tp_ranks_s"] = time.perf_counter() - t0
     rep = {s: [json.loads((rep_dir / f"{s}_rank{r}.json").read_text()) for r in range(2)] for s in ("ddp", "fsdp")}
     runs = {s: next(Path(tmp, "exp_fsdp", s).glob("*/*/train_log.jsonl")).parent for s in ("ddp", "fsdp")}
     losses = {s: [r["train/score_loss"] for r in train_speed(runs[s], 1, FSDP_STEPS - 1, 2 * FSDP_BATCH)[1]]
@@ -3058,13 +3113,10 @@ def slice12_phase(dev, card, cycles_per_ms, tmp, run_dir, data, checked):
         f"finite; launches {got}")
     del model
 
-    # 2. tensor-parallel separation at tp=2 against the replicated one
+    # 2. tensor-parallel separation at tp=2 against the replicated one, run
+    # by the ranks of 1. after their fits
     log(f"[tp] flagship, one {SERVE_SECONDS} s mixture, ddim + none N={TP_N}: tp=2 over 2 ranks on cards {cards} "
         f"({backend}) against the replicated separation of the same seed")
-    init_method = f"tcp://127.0.0.1:{free_port()}"
-    t0 = time.perf_counter()
-    run_ranks(tp_worker, lambda r: (r, 2, init_method, backend, cards[r], 31, str(rep_dir)), 2, 600)
-    out["tp_ranks_s"] = time.perf_counter() - t0
     tps = [torch.load(rep_dir / f"tp_rank{r}.pt", weights_only=False) for r in range(2)]
     ref = tps[0]["replicated"]
     scale = ref.abs().max().item()
@@ -3508,20 +3560,25 @@ def legacy_phase(dev, card, cycles_per_ms, tmp, run_dir, data):
     return out, dict(total)
 
 
+def demo_script(name):
+    """scripts/<name>.py, a learning demo of the port, as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, Path(__file__).resolve().parent / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def demo_phase(dev, card, cycles_per_ms):
     """Phase 15: the separation learning demo; see the module docstring.
     Returns (report, launches over the phase's main-path runs: the training
     steps and the evaluation)."""
-    import importlib.util
-
     import torch
 
     from diffsep_tpu_torch.ops import _build
 
-    spec = importlib.util.spec_from_file_location(
-        "torch_port_train_demo", Path(__file__).resolve().parent / "scripts" / "torch_port_train_demo.py")
-    demo = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(demo)
+    demo = demo_script("torch_port_train_demo")
     out = {}
     t_phase = time.perf_counter()
 
@@ -3573,13 +3630,22 @@ def demo_phase(dev, card, cycles_per_ms):
     log(f"[demo] evaluation after {DEMO_STEPS} steps ({nfe} evaluations of 8 x 1 s, {out['eval_s']:.2f} s): "
         f"{metrics}")
 
-    # 3. every kernel shape of both runs against its plain version, timed
+    # 3. the distillation of scripts/torch_port_distill_demo.py from the EMA
+    # weights, on its batch stream (a fresh batch every step), then each
+    # student's ddim SI-SDR on the held-out set at its N
+    dist_counts, dist_shapes, student_counts, student_shapes = distill_demo_run(
+        dev, card, model, run["state"], demo, (mix_te, tgt_te), out)
+
+    # 4. every kernel shape of these runs against its plain version, timed
     rows = []
-    for i, key in enumerate(sorted(set(train_shapes) | set(eval_shapes), key=str)):
+    dist_steps = len(DEMO_DISTILL_STAGES) * DEMO_DISTILL_STEPS
+    shapes = set(train_shapes) | set(eval_shapes) | set(dist_shapes) | set(student_shapes)
+    for i, key in enumerate(sorted(shapes, key=str)):
         k, shape, cout = key
         r = check_kernel(k, shape, cout, "bfloat16", dev, 1500 + i, cycles_per_ms)
         r["launches_per_step"] = train_shapes.get(key, 0) / DEMO_STEPS
         r["launches_per_eval"] = eval_shapes.get(key, 0) / nfe
+        r["launches_per_distill_step"] = dist_shapes.get(key, 0) / dist_steps
         rows.append(r)
         r["bound_share"] = r["bound_ms"] / r["ms"]
         log(f"[demo] {k} {shape}->{cout} x{r['launches_per_step']:g}/step x{r['launches_per_eval']:g}/eval:"
@@ -3611,10 +3677,85 @@ def demo_phase(dev, card, cycles_per_ms):
             f"{v['plain_ms']:.4f}, cuDNN {v['library_ms']:.4f}, bound {v['bound_ms']:.4f} "
             f"({100 * v['bound_ms'] / v['ms']:.1f}% of it; {card})")
     total = collections.Counter(counts)
-    total.update(eval_counts)
+    for c in (eval_counts, dist_counts, student_counts):
+        total.update(c)
     out["seconds"] = time.perf_counter() - t_phase
-    log(f"[demo] {len(rows)} kernel shapes held; phase 15 took {out['seconds']:.1f} s; launches {dict(total)}")
+    log(f"[demo] {len(rows)} kernel shapes held ({len(shapes - set(train_shapes) - set(eval_shapes))} new to "
+        f"the distillation); phase 15 took {out['seconds']:.1f} s; launches {dict(total)}")
     return out, dict(total)
+
+
+def smoke_distill(model, state, batch_fn, stages, steps_per_stage, schedule, seed, per_step, eval_per_step, score):
+    """A distill demo's distillation from the EMA weights of ``state``
+    through ``progressive_distill`` on ``batch_fn`` (draws from ``seed``),
+    asserting its launches per distill step (``per_step``: {kernel:
+    (forward, backward)}); then
+    each student scored by ``score(n)`` -> (SI-SDR dB, score evaluations),
+    asserting N evaluations of ``eval_per_step``'s forward launches each
+    and a finite score. Returns (report, launches and launch shapes of the
+    distill steps, the same of the students' evaluations)."""
+    import torch
+
+    from diffsep_tpu_torch.ops import _build
+    from diffsep_tpu_torch.train.distill import ema_state_dict, progressive_distill
+
+    res = {"stages": list(stages), "steps_per_stage": steps_per_stage, "schedule": schedule}
+    model.score_model.load_state_dict(ema_state_dict(model, state), strict=True)
+    steps = len(stages) * steps_per_stage
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    students = progressive_distill(model, batch_fn, stages=stages, steps_per_stage=steps_per_stage,
+                                   seed=seed, schedule=schedule)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize(model.device)
+    res["s_per_distill_step"] = (time.perf_counter() - t0) / steps
+    dist_counts, dist_shapes = dict(_build.launch_counts), dict(_build.launch_shapes)
+    assert dist_counts == {k: steps * sum(v) for k, v in per_step.items()}, dist_counts
+    assert dict(_build.backward_counts) == {k: steps * v[1] for k, v in per_step.items() if v[1]}, \
+        dict(_build.backward_counts)
+    res["launches_per_distill_step"] = {k: v / steps for k, v in dist_counts.items()}
+
+    student_counts, student_shapes = collections.Counter(), collections.Counter()
+    res["students_si_sdr_db"], res["launches_per_student_eval"] = {}, {}
+    for n, state_dict in students.items():
+        model.score_model.load_state_dict(state_dict, strict=True)
+        _build.reset_counts()
+        si_sdr, nfe = score(n)
+        got = dict(_build.launch_counts)
+        assert nfe == n and got == {k: n * v[0] for k, v in eval_per_step.items()}, (n, nfe, got)
+        assert np.isfinite(si_sdr), (n, si_sdr)
+        res["students_si_sdr_db"][n] = si_sdr
+        res["launches_per_student_eval"][n] = {k: v / nfe for k, v in got.items()}
+        student_counts.update(got)
+        student_shapes.update(_build.launch_shapes)
+    return res, dist_counts, dist_shapes, dict(student_counts), dict(student_shapes)
+
+
+def distill_demo_run(dev, card, model, state, demo, heldout, out):
+    """Phase 15's distillation (see the module docstring) from the EMA
+    weights of ``state``, through scripts/torch_port_distill_demo.py's batch
+    stream; ``heldout`` the demo's held-out (mixtures, targets). Fills
+    ``out["distill"]``. Returns the launches and launch shapes of the
+    distill steps and of the students' evaluations."""
+    import torch
+
+    dist = demo_script("torch_port_distill_demo")
+    t_part = time.perf_counter()
+    stream = dist.BatchStream(0, demo.BATCH, demo.SAMPLES, dev)
+    mix, tgt = (torch.from_numpy(a).to(dev) for a in heldout)
+    res, *counts = smoke_distill(
+        model, state, dist.stage_batches(stream, DEMO_DISTILL_STAGES, DEMO_DISTILL_STEPS), DEMO_DISTILL_STAGES,
+        DEMO_DISTILL_STEPS, None, dist.DISTILL_SEED, DEMO_DISTILL_PER_STEP, DEMO_PER_STEP,
+        lambda n: demo.heldout_si_sdr(model, mix, tgt, predictor_name="ddim", corrector_name="none", N=n))
+    steps = len(DEMO_DISTILL_STAGES) * DEMO_DISTILL_STEPS
+    assert stream.served == steps, (stream.served, steps)
+    res["seconds"] = time.perf_counter() - t_part
+    log(f"[demo] distillation {DEMO_DISTILL_STAGES} x {DEMO_DISTILL_STEPS} steps on the linear grid: "
+        f"{res['s_per_distill_step']:.4f} s per distill step, launches per step {res['launches_per_distill_step']}; "
+        f"students' ddim SI-SDR {res['students_si_sdr_db']} dB, launches per evaluation "
+        f"{res['launches_per_student_eval']}; {res['seconds']:.1f} s in all ({card})")
+    out["distill"] = res
+    return counts
 
 
 def demo_nr_phase(dev, card, cycles_per_ms, held):
@@ -3623,17 +3764,11 @@ def demo_nr_phase(dev, card, cycles_per_ms, held):
     held against the plain versions in bf16. Returns (report, launches over
     the phase's main-path runs: the training steps, the distill steps and
     the students' evaluation)."""
-    import importlib.util
-
     import torch
 
     from diffsep_tpu_torch.ops import _build
-    from diffsep_tpu_torch.train.distill import ema_state_dict, progressive_distill
 
-    spec = importlib.util.spec_from_file_location(
-        "torch_port_distill_demo_nr", Path(__file__).resolve().parent / "scripts" / "torch_port_distill_demo_nr.py")
-    dist = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(dist)
+    dist = demo_script("torch_port_distill_demo_nr")
     nr = dist.nr
     out = {}
     t_phase = time.perf_counter()
@@ -3678,38 +3813,25 @@ def demo_nr_phase(dev, card, cycles_per_ms, held):
     assert all(abs(out["floors"][k] - v) <= tol + 1e-9 for k, (v, tol) in NR_FLOORS.items()), out["floors"]
 
     # 3. the distillation from the EMA weights, as the distill demo runs it
-    model.score_model.load_state_dict(ema_state_dict(model, run["state"]), strict=True)
+    # (over a pool of batches), and 4. each student's ddim SI-SDR on the
+    # held-out clips
     drng = np.random.default_rng(dist.POOL_SEED)
     pool = [tuple(torch.from_numpy(a).to(dev) for a in nr.make_batch(drng, nr.BATCH, nr.SAMPLES))
             for _ in range(NR_DISTILL_POOL)]
-    steps = len(NR_DISTILL_STAGES) * NR_DISTILL_STEPS
-    _build.reset_counts()
-    t0 = time.perf_counter()
-    students = progressive_distill(model, lambda step: pool[step % len(pool)], stages=NR_DISTILL_STAGES,
-                                   steps_per_stage=NR_DISTILL_STEPS, seed=dist.DISTILL_SEED, schedule="log")
-    torch.cuda.synchronize()
-    out["s_per_distill_step"] = (time.perf_counter() - t0) / steps
-    dist_counts, dist_shapes = dict(_build.launch_counts), dict(_build.launch_shapes)
-    assert dist_counts == {k: steps * sum(v) for k, v in NR_DISTILL_PER_STEP.items()}, dist_counts
-    assert dict(_build.backward_counts) == {k: steps * v[1] for k, v in NR_DISTILL_PER_STEP.items() if v[1]}, \
-        dict(_build.backward_counts)
-    out["launches_per_distill_step"] = {k: v / steps for k, v in dist_counts.items()}
-
-    # 4. each student's ddim SI-SDR on the held-out clips
     si_sdr = nr.metrics()[0]
     clean = torch.from_numpy(tgt_te[:, :1])
-    _build.reset_counts()
-    out["students_si_sdr_db"], nfe_total = {}, 0
-    for n, state_dict in students.items():
-        model.score_model.load_state_dict(state_dict, strict=True)
+
+    def score(n):
         gen = torch.Generator(device=dev).manual_seed(nr.EVAL_SEED)
         est, nfe = model.separate(torch.from_numpy(mix_te).to(dev), generator=gen, predictor_name="ddim",
                                   corrector_name="none", N=n, schedule="log")
-        nfe_total += nfe
-        out["students_si_sdr_db"][n] = float(si_sdr(est[:, :1].float().cpu(), clean))
-    eval_counts, eval_shapes = dict(_build.launch_counts), dict(_build.launch_shapes)
-    assert eval_counts == {k: nfe_total * v[0] for k, v in NR_PER_STEP.items()}, (eval_counts, nfe_total)
-    assert all(np.isfinite(v) for v in out["students_si_sdr_db"].values()), out["students_si_sdr_db"]
+        return float(si_sdr(est[:, :1].float().cpu(), clean)), nfe
+
+    res, dist_counts, dist_shapes, eval_counts, eval_shapes = smoke_distill(
+        model, run["state"], lambda step: pool[step % len(pool)], NR_DISTILL_STAGES, NR_DISTILL_STEPS, "log",
+        dist.DISTILL_SEED, NR_DISTILL_PER_STEP, NR_PER_STEP, score)
+    out.update(s_per_distill_step=res["s_per_distill_step"], launches_per_distill_step=res["launches_per_distill_step"],
+               students_si_sdr_db=res["students_si_sdr_db"])
     log(f"[demo_nr] distillation {NR_DISTILL_STAGES} x {NR_DISTILL_STEPS} steps: {out['s_per_distill_step']:.4f} s "
         f"per distill step, launches per step {out['launches_per_distill_step']}; students' ddim SI-SDR "
         f"{out['students_si_sdr_db']} dB ({card})")
@@ -3797,9 +3919,35 @@ def plan_text(plan):
     return f" plan {plan['variant']} strip {plan['rows']}{tile}, grid {tuple(plan['grid'])}"
 
 
+def side_phases(dev, card, tmp):
+    """Phases 12, 15, 16 and 11, in this order, in a process of their own:
+    the whole run starts it after phase 6, which leaves its folder in the
+    run's directory ``tmp`` and there, in side_held.json, the (kernel,
+    shape, cout, dtype) keys that phases 3 and 6 held. Writes their results
+    and launches to tmp/side.json."""
+    from diffsep_tpu_torch.ops import _build
+
+    for name in _build.KERNEL_SOURCES:
+        _build.load(name)
+    cycles_per_ms = sleep_cycles_per_ms()
+    held = {(k, tuple(shape), cout, dt)
+            for k, shape, cout, dt in json.loads((Path(tmp) / "side_held.json").read_text())}
+    res = {}
+    res["options"], res["option_counts"] = options_phase(dev, card, cycles_per_ms, tmp, Path(tmp) / "wsj0_mix", held)
+    res["demo"], res["demo_counts"] = demo_phase(dev, card, cycles_per_ms)
+    res["demo_nr"], res["demo_nr_counts"] = demo_nr_phase(
+        dev, card, cycles_per_ms, {(r["kernel"], tuple(r["shape"]), r["cout"]) for r in res["demo"]["kernel_checks"]})
+    res["diffuse"], res["diffuse_counts"] = diffuse_phase(dev, card, cycles_per_ms, tmp)
+    (Path(tmp) / "side.json").write_text(json.dumps(res))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--report", type=Path, default=None, help="write every result to this JSON file")
+    ap.add_argument("--side", type=Path, default=None,
+                    help="run phases 12, 15, 16 and 11 alone in this directory of a whole run (which starts "
+                         "them so, in a process of its own beside phases 7-14)")
     args = ap.parse_args()
     import torch
 
@@ -3820,11 +3968,18 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    if args.side is not None:
+        return side_phases(dev, card, args.side)
     report = {"card": card}
     t_start = time.perf_counter()
 
+    side, side_log = None, None  # the process of phases 12, 15, 16 and 11, from phase 7 on
+
     def mark(label):
         log(f"[time] {label}: {time.perf_counter() - t_start:.1f} s since the start")
+        if side is not None and side.poll() not in (None, 0):
+            log(side_log.read_text().rstrip())
+            raise AssertionError(f"phases 12, 15, 16 and 11 exited with {side.returncode}")
 
     # 1. build
     t0 = time.perf_counter()
@@ -3978,46 +4133,56 @@ def main() -> int:
         # 6. training phase
         report["train"] = train = train_phase(dev, card, cycles_per_ms, rng, tmp)
         mark("phase 6 done")
-        # 7. serving entry points, on the run dir phase 6 wrote
-        checked = {(r["kernel"], tuple(r["shape"]), r["cout"]) for r in results + train["kernel_checks"]
-                   if r["dtype"] == "bfloat16"}
-        report["serve_entry_points"], entry_counts = serve_entry_phase(
-            dev, card, train["run_dir"], tmp, mix, (m_gpu, m_cpu), rng, checked)
-        mark("phase 7 done")
-        # 8. the enhancement recipe
-        checked |= {(r["kernel"], tuple(r["shape"]), r["cout"])
-                    for r in report["serve_entry_points"]["kernel_checks"]}
-        report["enhance"], enh_counts = enhance_phase(dev, card, cycles_per_ms, tmp, (m_gpu, m_cpu), checked)
-        mark("phase 8 done")
-        # 9. distillation and the export artifact, on the run dir of phase 6
-        checked |= {(r["kernel"], tuple(r["shape"]), r["cout"]) for r in report["enhance"]["kernel_checks"]}
-        report["distill"], dist_counts = distill_phase(dev, card, train["run_dir"], tmp, (m_gpu, m_cpu), checked)
-        mark("phase 9 done")
-        # 10. data parallelism and multi-device evaluation
-        checked |= {(r["kernel"], tuple(r["shape"]), r["cout"]) for r in report["distill"]["kernel_checks"]}
-        report["ddp"], ddp_counts = ddp_phase(dev, card, tmp, train["run_dir"], Path(tmp) / "wsj0_mix", checked)
-        # 11. the DiffuSE recipe
-        report["diffuse"], diffuse_counts = diffuse_phase(dev, card, cycles_per_ms, tmp)
-        # 12. the NCSN++ options
-        held = {(r["kernel"], tuple(r["shape"]), r["cout"], r["dtype"]) for r in results + train["kernel_checks"]}
-        held |= {(r["kernel"], tuple(r["shape"]), r["cout"], r["dtype"])
-                 for key in ("serve_entry_points", "enhance", "distill", "ddp") for r in report[key]["kernel_checks"]}
-        report["options"], option_counts = options_phase(dev, card, cycles_per_ms, tmp, Path(tmp) / "wsj0_mix", held)
-        # 13. FSDP, tensor parallelism, three speakers and the tools
-        checked |= {(r["kernel"], tuple(r["shape"]), r["cout"]) for key in ("ddp", "options")
-                    for r in report[key]["kernel_checks"] if r["dtype"] == "bfloat16"}
-        report["slice12"], slice12_counts = slice12_phase(dev, card, cycles_per_ms, tmp, train["run_dir"],
-                                                          Path(tmp) / "wsj0_mix", checked)
-        # 14. the legacy blocks, the figures CLI, the native decoder
-        report["legacy"], legacy_counts = legacy_phase(dev, card, cycles_per_ms, tmp, train["run_dir"],
-                                                       Path(tmp) / "wsj0_mix")
-    mark("phases 10-14 done")
-    # 15. the separation learning demo
-    report["demo"], demo_counts = demo_phase(dev, card, cycles_per_ms)
-    # 16. the enhancement learning demo and its distillation
-    report["demo_nr"], demo_nr_counts = demo_nr_phase(
-        dev, card, cycles_per_ms, {(r["kernel"], tuple(r["shape"]), r["cout"]) for r in report["demo"]["kernel_checks"]})
-    mark("phase 16 done")
+        # 12, 15, 16 and 11: in a process of their own beside phases 7-14
+        # (most of every phase's time is the host's or its child processes')
+        Path(tmp, "side_held.json").write_text(json.dumps(
+            [[r["kernel"], r["shape"], r["cout"], r["dtype"]] for r in results + train["kernel_checks"]]))
+        side_log = Path(tmp) / "side.log"
+        with open(side_log, "w") as f:
+            side = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--side", tmp],
+                                    stdout=f, stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent)
+        try:
+            # 7. serving entry points, on the run dir phase 6 wrote
+            checked = {(r["kernel"], tuple(r["shape"]), r["cout"]) for r in results + train["kernel_checks"]
+                       if r["dtype"] == "bfloat16"}
+            report["serve_entry_points"], entry_counts = serve_entry_phase(
+                dev, card, train["run_dir"], tmp, mix, (m_gpu, m_cpu), rng, checked)
+            mark("phase 7 done")
+            # 8. the enhancement recipe
+            checked |= {(r["kernel"], tuple(r["shape"]), r["cout"])
+                        for r in report["serve_entry_points"]["kernel_checks"]}
+            report["enhance"], enh_counts = enhance_phase(dev, card, cycles_per_ms, tmp, (m_gpu, m_cpu), checked)
+            mark("phase 8 done")
+            # 9. distillation and the export artifact, on the run dir of phase 6
+            checked |= {(r["kernel"], tuple(r["shape"]), r["cout"]) for r in report["enhance"]["kernel_checks"]}
+            report["distill"], dist_counts = distill_phase(dev, card, train["run_dir"], tmp, (m_gpu, m_cpu), checked)
+            mark("phase 9 done")
+            # 10. data parallelism and multi-device evaluation
+            checked |= {(r["kernel"], tuple(r["shape"]), r["cout"]) for r in report["distill"]["kernel_checks"]}
+            report["ddp"], ddp_counts = ddp_phase(dev, card, tmp, train["run_dir"], Path(tmp) / "wsj0_mix", checked)
+            mark("phase 10 done")
+            # 13. FSDP, tensor parallelism, three speakers and the tools
+            checked |= {(r["kernel"], tuple(r["shape"]), r["cout"]) for r in report["ddp"]["kernel_checks"]}
+            report["slice12"], slice12_counts = slice12_phase(dev, card, cycles_per_ms, tmp, train["run_dir"],
+                                                              Path(tmp) / "wsj0_mix", checked)
+            mark("phase 13 done")
+            # 14. the legacy blocks, the figures CLI, the native decoder
+            report["legacy"], legacy_counts = legacy_phase(dev, card, cycles_per_ms, tmp, train["run_dir"],
+                                                           Path(tmp) / "wsj0_mix")
+            mark("phase 14 done")
+            side.wait(timeout=1200)
+        finally:
+            if side.poll() is None:
+                side.kill()
+                side.wait()
+        log(side_log.read_text().rstrip())
+        assert side.returncode == 0, f"phases 12, 15, 16 and 11 exited with {side.returncode}"
+        side_res = json.loads(Path(tmp, "side.json").read_text())
+    mark("phases 12, 15, 16 and 11 done (beside phases 7-14)")
+    report["options"], option_counts = side_res["options"], side_res["option_counts"]
+    report["demo"], demo_counts = side_res["demo"], side_res["demo_counts"]
+    report["demo_nr"], demo_nr_counts = side_res["demo_nr"], side_res["demo_nr_counts"]
+    report["diffuse"], diffuse_counts = side_res["diffuse"], side_res["diffuse_counts"]
 
     # summary per kernel: the bf16 (serving) times summed over one score
     # evaluation's launches at batch 2 (the same in float32 apart, with the
@@ -4076,11 +4241,14 @@ def main() -> int:
                               "fsdp, tp=2, three speakers, tools (phase 13)": slice12_counts[k],
                               "legacy blocks (phase 14)": legacy_counts.get(k, 0) - figure_counts[k],
                               "figures reverse_diffusion_example (phase 14)": figure_counts[k],
-                              "learning demo, training and evaluation (phase 15)": demo_counts[k],
+                              "learning demo, training, evaluation, distillation and students (phase 15)":
+                                  demo_counts[k],
                               "enhancement demo, training, distillation and students (phase 16)":
                                   demo_nr_counts[k]},
             launches_per_demo_step={"forward": DEMO_PER_STEP[k][0], "backward": DEMO_PER_STEP[k][1]},
             launches_per_nr_demo_step={"forward": NR_PER_STEP[k][0], "backward": NR_PER_STEP[k][1]},
+            launches_per_demo_distill_step={"forward": DEMO_DISTILL_PER_STEP[k][0],
+                                            "backward": DEMO_DISTILL_PER_STEP[k][1]},
             launches_per_nr_distill_step={"forward": NR_DISTILL_PER_STEP[k][0],
                                           "backward": NR_DISTILL_PER_STEP[k][1]},
             demo_launches_per_step_by_plan=report["demo"]["conv_launches_per_step_by_plan"] if k == "conv3x3"

@@ -287,6 +287,11 @@ def distill_stage(model, batch_fn: Callable[[int], tuple], cfg: DistillConfig, s
     return state
 
 
+def stage_cache_file(cache_dir, stage: int, n: int) -> Path:
+    """The file of stage ``stage`` (an ``n``-step student) in a stage cache."""
+    return Path(cache_dir) / f"stage{stage}_N{int(n)}.pt"
+
+
 def progressive_distill(model, batch_fn: Callable[[int], tuple], stages=(16, 8, 4, 2), steps_per_stage: int = 1000,
                         seed: int = 0, teacher_substeps: int = 2, log_every: int = 0,
                         stage_cache_dir: Optional[str] = None, **cfg_kwargs) -> Dict[int, Dict[str, Tensor]]:
@@ -308,7 +313,7 @@ def progressive_distill(model, batch_fn: Callable[[int], tuple], stages=(16, 8, 
     out = {}
     for si, n in enumerate(stages):
         n = int(n)
-        cache = cache_dir / f"stage{si}_N{n}.pt" if cache_dir is not None else None
+        cache = stage_cache_file(cache_dir, si, n) if cache_dir is not None else None
         if cache is not None and cache.exists():
             out[n] = load_payload(cache, map_location=model.device)
             model.score_model.load_state_dict(out[n], strict=True)

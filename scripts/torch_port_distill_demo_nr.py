@@ -40,10 +40,8 @@ runs on the card, and raises where there is none.
 from __future__ import annotations
 
 import argparse
-import json
 import logging
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -75,34 +73,25 @@ def check_bar(result):
     return met
 
 
-def load_teacher(model, ckpt, teacher_steps, seed):
-    """Load the teacher's weights file into ``model``, after its sidecar's
-    provenance check (the JAX script's message where it differs). Returns
-    the sidecar."""
-    from diffsep_tpu_torch.train.checkpoints import load_payload
+def mismatch(teacher_steps, seed):
+    """The JAX script's provenance check of a teacher's sidecar: its message
+    where the sidecar's steps or seed differ from the arguments, else
+    None."""
 
-    meta = json.loads(ckpt.with_suffix(".json").read_text())
-    if meta["teacher_steps"] != teacher_steps or meta.get("seed", 0) != seed:
-        raise SystemExit(
-            f"{ckpt} holds a {meta['teacher_steps']}-step seed={meta.get('seed', 0)} teacher but the "
-            f"arguments say {teacher_steps}/seed={seed}; delete the cache or match them")
-    model.score_model.load_state_dict(load_payload(ckpt, map_location=model.device)["state_dict"], strict=True)
-    return meta
+    def check(meta):
+        if meta["teacher_steps"] != teacher_steps or meta.get("seed", 0) != seed:
+            return (f"holds a {meta['teacher_steps']}-step seed={meta.get('seed', 0)} teacher but the arguments "
+                    f"say {teacher_steps}/seed={seed}; delete the cache or match them")
+        return None
+
+    return check
 
 
 def train_teacher(model, teacher_steps, seed, b, n, ckpt=None, log=print):
     """Train the teacher as torch_port_train_demo_nr.py does at ``seed`` and
     leave its EMA weights in ``model``; save them to ``ckpt`` where given.
     Returns the training time (s)."""
-    from diffsep_tpu_torch.train.distill import ema_state_dict
-
-    run = nr.train(model, seed, teacher_steps, np.random.default_rng(seed), b, n, log=lambda m: log(f"teacher {m}"))
-    record = {"steps": teacher_steps, "train_time_s": round(run["train_time_s"], 1), "seed": seed}
-    if ckpt is not None:
-        demo.save_teacher(ckpt, model, run["state"], record)
-        log(f"teacher saved to {ckpt}")
-    model.score_model.load_state_dict(ema_state_dict(model, run["state"]), strict=True)
-    return run["train_time_s"]
+    return demo.train_teacher(model, teacher_steps, seed, b, n, ckpt, log, make=nr.make_batch)
 
 
 def distill_pool(seed, b, n, device):
@@ -133,99 +122,29 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="cpu, cuda or cuda:N (default: the card)")
     ap.add_argument("--tiny", action="store_true", help="a CPU rehearsal at nf 8, 0.5 s clips")
     args = ap.parse_args(argv)
-    stages = tuple(int(s) for s in args.stages.split(","))
-    schedule = None if args.schedule == "none" else args.schedule
     logging.basicConfig(level=logging.INFO, format="%(message)s")
-
-    import torch
-
-    from diffsep_tpu_torch.ops import _build
-    from diffsep_tpu_torch.train.distill import progressive_distill
-
-    def log(msg):
-        print(msg, flush=True)
 
     sizes = nr.TINY if args.tiny else {"nf": nr.NF, "samples": nr.SAMPLES, "heldout": nr.HELDOUT_BATCH}
     b, n = (nr.TINY["batch"] if args.tiny else args.batch), sizes["samples"]
     model = nr.build_model(args.dtype, False, args.device, args.seed, nf=sizes["nf"])
-    dev = model.device
 
-    # --- teacher: load, or train and save ---
-    ckpt = Path(args.teacher_ckpt) if args.teacher_ckpt else None
-    if ckpt is not None and ckpt.exists():
-        meta = load_teacher(model, ckpt, args.teacher_steps, args.seed)
-        teacher_time = float(meta.get("teacher_train_time_s", 0.0))
-        log(f"teacher loaded from {ckpt} ({meta})")
-    else:
-        teacher_time = train_teacher(model, args.teacher_steps, args.seed, b, n, ckpt, log)
-
-    # --- held-out evaluation: SI-SDR and PESQ-wb of the clean channel ---
+    # held-out evaluation: SI-SDR and PESQ-wb of the clean channel
     mix_te, tgt_te = nr.make_batch(np.random.default_rng(nr.HELDOUT_SEED), sizes["heldout"], n)
     si_floor, pesq_floor = nr.floors(mix_te, tgt_te)
-    result = {
-        "teacher_steps": args.teacher_steps,
-        "seed": args.seed,
-        "teacher_train_time_s": round(teacher_time, 1),
-        "distill_steps_per_stage": args.distill_steps,
-        "stages": list(stages),
-        "schedule": schedule,
-        "si_sdr_noisy_floor_db": round(si_floor, 2),
-        "pesq_wb_noisy_floor": round(pesq_floor, 3),
-    }
 
-    def score(prefix, **kw):
+    def score(result, prefix, **kw):
         si, pq, _ = nr.enhance_scores(model, mix_te, tgt_te, **kw)
         result[f"si_sdr_{prefix}_db"], result[f"pesq_wb_{prefix}"] = round(si, 2), round(pq, 3)
+        return f"{round(si, 2)} dB / PESQ {round(pq, 3)}"
 
-    # the teacher first: progressive_distill leaves the last student's weights loaded
-    score("teacher_pc_n30", N=nr.PC_N)
-    for k in sorted(set(stages)):
-        score(f"teacher_ddim_n{k}", predictor_name="ddim", corrector_name="none", N=k, schedule=schedule)
-    log(json.dumps(result))
-
-    # --- progressive distillation over a pool of batches on the card ---
-    pool = distill_pool(args.seed, b, n, dev)
-    trained = 0
-
-    def batch_fn(step):
-        nonlocal trained
-        trained += 1
-        return pool[step % len(pool)]
-
-    _build.reset_counts()
-    t0 = time.perf_counter()
-    students = progressive_distill(model, batch_fn, stages=stages, steps_per_stage=args.distill_steps,
-                                   seed=DISTILL_SEED + args.seed, log_every=LOG_EVERY,
-                                   stage_cache_dir=args.stage_cache_dir, schedule=schedule)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    distill_s = time.perf_counter() - t0
-    launches = dict(_build.launch_counts)
-    result["distill_time_s"] = round(distill_s, 1)
-
-    for k, state_dict in students.items():
-        model.score_model.load_state_dict(state_dict, strict=True)
-        score(f"student_ddim_n{k}", predictor_name="ddim", corrector_name="none", N=k, schedule=schedule)
-        log(f"stage N={k}: student {result[f'si_sdr_student_ddim_n{k}_db']} dB / PESQ "
-            f"{result[f'pesq_wb_student_ddim_n{k}']} vs teacher {result[f'si_sdr_teacher_ddim_n{k}_db']} dB / "
-            f"{result[f'pesq_wb_teacher_ddim_n{k}']}")
-
-    result.update(
-        dtype=args.dtype,
-        distill_steps_trained=trained,
-        s_per_distill_step=distill_s / trained if trained else None,
-        launches_per_distill_step={k: v / trained for k, v in sorted(launches.items())} if trained else {},
-        backward_launches_per_distill_step=(
-            {k: v / trained for k, v in sorted(_build.backward_counts.items())} if trained else {}),
-        device=str(dev),
-        card=demo.card_name(dev),
-        bar=BAR,
-        bar_met=check_bar(result),
-    )
-    if args.tiny:
-        result["tiny"] = nr.TINY
-    print(json.dumps(result), flush=True)
-    Path(args.out).write_text(json.dumps(result, indent=2))
+    # a pool of batches on the card, cycled
+    pool = distill_pool(args.seed, b, n, model.device)
+    demo.distill_demo(model, args, {"si_sdr_noisy_floor_db": round(si_floor, 2),
+                                    "pesq_wb_noisy_floor": round(pesq_floor, 3)},
+                      score, lambda step: pool[step % len(pool)],
+                      lambda model, ckpt: train_teacher(model, args.teacher_steps, args.seed, b, n, ckpt),
+                      mismatch(args.teacher_steps, args.seed), lambda result: {"bar": BAR, "bar_met": check_bar(result)},
+                      tiny=nr.TINY if args.tiny else None, seed=DISTILL_SEED + args.seed, log_every=LOG_EVERY)
     return 0
 
 

@@ -16,6 +16,7 @@ and both hand kernels with real gradient descent, not shapes.
         [--dtype bfloat16|float32] [--remat] [--out PATH] [--save-ckpt PATH]
         [--device cpu] [--tiny]
     python scripts/torch_port_train_demo.py 10000 --seeds 0,1,2 [--out-dir DIR]
+        [--save-ckpt PATH]
 
 Seeds: the data stream is numpy's ``default_rng(seed)``, draw for draw that
 of the JAX package's scripts/train_demo.py; the weights are drawn from
@@ -33,7 +34,9 @@ writes DIR/torch_port_train_demo_seed{S}.json, then
 DIR/torch_port_train_demo_spread.json: every si_sdr_* metric (and the
 dpmpp-minus-ddim differences) as {mean, min, max, spread, values} over the
 seeds, as scripts/seed_spread.py aggregates the JAX package's records, with
-the bar of ``BAR`` checked.
+the bar of ``BAR`` checked. With ``--seeds``, ``--save-ckpt PATH`` writes
+seed S's teacher as PATH with ``_seed{S}`` before the suffix
+(scripts/torch_port_distill_demo.py loads it with ``--teacher-ckpt``).
 
 ``--tiny`` rehearses on the CPU: nf 8, batch 2 x 2000 samples, 2 held-out
 mixtures of 2000 samples. Without ``--device`` the demo runs on the card,
@@ -165,18 +168,35 @@ def train(model, seed, steps, rng, b=BATCH, n=SAMPLES, log=print, draws=None, ma
     }
 
 
+def si_sdr_metric():
+    """The JAX scripts' metric: SI-SDR (dB) of both sources."""
+    from diffsep_tpu_torch.models.losses import SISDRLoss
+
+    return SISDRLoss(zero_mean=True, clamp_db=30, reduction="mean", sign_flip=True)
+
+
+def heldout_si_sdr(model, mix, tgt, noise=None, **kw):
+    """SI-SDR (dB) of the separations of the held-out tensors ``mix``,
+    ``tgt`` with the weights ``model`` holds, the sampler's settings in
+    ``kw``, drawing from a generator seeded EVAL_SEED (the JAX scripts'
+    PRNGKey(7) for every sampler) or the given ``noise``. Returns (SI-SDR,
+    score evaluations)."""
+    import torch
+
+    gen = torch.Generator(device=model.device).manual_seed(EVAL_SEED)
+    est, nfe = model.separate(mix, generator=gen, noise=noise, **kw)
+    return float(si_sdr_metric()(est.float(), tgt)), nfe
+
+
 def evaluate(model, state, mix_te, tgt_te, noise=None):
     """SI-SDR (dB) of the EMA weights' separations of the held-out set with
-    each sampler, each drawing from a generator seeded EVAL_SEED (the JAX
-    script's PRNGKey(7) for every sampler), and of the mixture floor.
+    each sampler (``heldout_si_sdr``), and of the mixture floor.
     ``noise(sampler_kwargs)``, where given, hands each sampler its draws.
     Returns (metrics, score evaluations)."""
     import torch
 
-    from diffsep_tpu_torch.models.losses import SISDRLoss
     from diffsep_tpu_torch.train.ema import swapped
 
-    metric = SISDRLoss(zero_mean=True, clamp_db=30, reduction="mean", sign_flip=True)
     dev = model.device
     mix = torch.from_numpy(mix_te).to(dev)
     tgt = torch.from_numpy(tgt_te).to(dev)
@@ -184,17 +204,16 @@ def evaluate(model, state, mix_te, tgt_te, noise=None):
 
     def si_sdr(**kw):
         nonlocal nfe_total
-        gen = torch.Generator(device=dev).manual_seed(EVAL_SEED)
-        est, nfe = model.separate(mix, generator=gen, noise=None if noise is None else noise(kw), **kw)
+        value, nfe = heldout_si_sdr(model, mix, tgt, noise=None if noise is None else noise(kw), **kw)
         nfe_total += nfe
-        return float(metric(est.float(), tgt))
+        return value
 
     with swapped(state.ema, state.params):
         sep = si_sdr(N=PC_N)
         fast = si_sdr(predictor_name="ddim", corrector_name="none", N=FAST_N)
         sweep = {f"si_sdr_{pred}_n{k}_db": round(si_sdr(predictor_name=pred, corrector_name="none", N=k), 2)
                  for pred in SWEEP[0] for k in SWEEP[1]}
-    floor = float(metric(mix.expand_as(tgt), tgt))
+    floor = float(si_sdr_metric()(mix.expand_as(tgt), tgt))
     return {
         "si_sdr_mixture_floor_db": round(floor, 2),
         "si_sdr_separated_db": round(sep, 2),
@@ -282,14 +301,128 @@ def save_teacher(path, model, state, record):
     }))
 
 
+def train_teacher(model, steps, seed, b, n, ckpt=None, log=print, make=make_batch):
+    """Train a distillation demo's teacher as this demo trains at ``seed``
+    (on batches of ``make``) and leave its EMA weights in ``model``; save
+    them to ``ckpt`` where given. Returns the training time (s)."""
+    from diffsep_tpu_torch.train.distill import ema_state_dict
+
+    run = train(model, seed, steps, np.random.default_rng(seed), b, n, log=lambda m: log(f"teacher {m}"), make=make)
+    if ckpt is not None:
+        save_teacher(ckpt, model, run["state"], {"steps": steps, "train_time_s": round(run["train_time_s"], 1),
+                                                 "seed": seed})
+        log(f"teacher saved to {ckpt}")
+    model.score_model.load_state_dict(ema_state_dict(model, run["state"]), strict=True)
+    return run["train_time_s"]
+
+
+def load_teacher(model, ckpt, mismatch):
+    """Load the teacher's weights file ``ckpt`` into ``model``; exit instead,
+    with ``ckpt`` and ``mismatch(sidecar)``, where that names a fault in the
+    provenance sidecar. Returns the sidecar."""
+    from diffsep_tpu_torch.train.checkpoints import load_payload
+
+    meta = json.loads(ckpt.with_suffix(".json").read_text())
+    fault = mismatch(meta)
+    if fault:
+        raise SystemExit(f"{ckpt} {fault}")
+    model.score_model.load_state_dict(load_payload(ckpt, map_location=model.device)["state_dict"], strict=True)
+    return meta
+
+
+def distill_demo(model, args, head, score, batch_fn, train_fn, mismatch, extra, log=print, tiny=None,
+                 **distill_kw):
+    """A distillation demo's run on ``model`` from the distill scripts'
+    arguments ``args``: the teacher loaded from ``--teacher-ckpt`` (after
+    ``mismatch``, as ``load_teacher`` takes it) or trained by
+    ``train_fn(model, ckpt)``, which returns its seconds; the teacher scored
+    first, with the PC sampler and with ddim at each stage's N, by
+    ``score(record, prefix, **sampler)``, which writes its metrics into the
+    record and returns them as text; ``progressive_distill`` on ``batch_fn``
+    (``distill_kw``: its seed, logging and options); each student scored
+    with its own stage's weights. The record (the arguments, ``head``, the
+    scores, the distill time, seconds and hand-kernel launches per distill
+    step, the card, then ``extra(record)``) is printed and written to
+    ``args.out``. Returns it."""
+    import torch
+
+    from diffsep_tpu_torch.ops import _build
+    from diffsep_tpu_torch.train.distill import progressive_distill
+
+    stages = tuple(int(s) for s in args.stages.split(","))
+    schedule = None if args.schedule == "none" else args.schedule
+    dev = model.device
+    ckpt = Path(args.teacher_ckpt) if args.teacher_ckpt else None
+    if ckpt is not None and ckpt.exists():
+        meta = load_teacher(model, ckpt, mismatch)
+        teacher_time = float(meta.get("teacher_train_time_s", 0.0))
+        log(f"teacher loaded from {ckpt} ({meta})")
+    else:
+        teacher_time = train_fn(model, ckpt)
+
+    # the teacher first: progressive_distill leaves the last student's weights loaded
+    result = {"teacher_steps": args.teacher_steps, "seed": args.seed, "teacher_train_time_s": round(teacher_time, 1),
+              "distill_steps_per_stage": args.distill_steps, "stages": list(stages), "schedule": schedule, **head}
+    ddim = {"predictor_name": "ddim", "corrector_name": "none", "schedule": schedule}
+    score(result, "teacher_pc_n30", N=PC_N)
+    teacher = {k: score(result, f"teacher_ddim_n{k}", N=k, **ddim) for k in sorted(set(stages))}
+    log(json.dumps(result))
+
+    trained = 0
+
+    def counted(step):
+        nonlocal trained
+        trained += 1
+        return batch_fn(step)
+
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    students = progressive_distill(model, counted, stages=stages, steps_per_stage=args.distill_steps,
+                                   stage_cache_dir=args.stage_cache_dir, schedule=schedule, **distill_kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    distill_s = time.perf_counter() - t0
+    launches, backward = dict(_build.launch_counts), dict(_build.backward_counts)
+    result["distill_time_s"] = round(distill_s, 1)
+    for k, state_dict in students.items():
+        model.score_model.load_state_dict(state_dict, strict=True)
+        log(f"stage N={k}: student {score(result, f'student_ddim_n{k}', N=k, **ddim)} vs teacher {teacher[k]}")
+
+    def per_step(counts):
+        return {key: v / trained for key, v in sorted(counts.items())} if trained else {}
+
+    result.update(dtype=args.dtype, distill_steps_trained=trained,
+                  s_per_distill_step=distill_s / trained if trained else None,
+                  launches_per_distill_step=per_step(launches), backward_launches_per_distill_step=per_step(backward),
+                  device=str(dev), card=card_name(dev))
+    result.update(extra(result))
+    if tiny:
+        result["tiny"] = tiny
+    print(json.dumps(result), flush=True)
+    Path(args.out).write_text(json.dumps(result, indent=2))
+    return result
+
+
+def seed_path(path, seed):
+    """``path`` with ``_seed{seed}`` before its suffix: seed S's file of a
+    ``--seeds`` run."""
+    path = Path(path)
+    return path.with_name(f"{path.stem}_seed{seed}{path.suffix}")
+
+
 def add_derived_deltas(rec):
-    """dpmpp against ddim at each budget, within one seed (a copy of the
-    sampler half of scripts/seed_spread.py:add_derived_deltas)."""
+    """dpmpp against ddim at each budget, and a distilled student against
+    its teacher's ddim at its N, within one seed (a copy of
+    scripts/seed_spread.py:add_derived_deltas)."""
     out = dict(rec)
     for n in SWEEP[1]:
         a, b = f"si_sdr_dpmpp_n{n}_db", f"si_sdr_ddim_n{n}_db"
         if a in rec and b in rec:
             out[f"si_sdr_delta_dpmpp_minus_ddim_n{n}_db"] = round(rec[a] - rec[b], 2)
+    for n in (1, 2, 4, 8):
+        a, b = f"si_sdr_student_ddim_n{n}_db", f"si_sdr_teacher_ddim_n{n}_db"
+        if a in rec and b in rec:
+            out[f"si_sdr_delta_distill_gain_n{n}_db"] = round(rec[a] - rec[b], 2)
     return out
 
 
@@ -398,12 +531,13 @@ def main(argv=None):
                     help="where --seeds writes its records")
     ap.add_argument("--save-ckpt", default=None,
                     help="write the trained EMA weights here (the port's weights file) and a provenance "
-                    "sidecar beside it")
+                    "sidecar beside it; with --seeds, each seed's with _seed{S} before the suffix")
     ap.add_argument("--device", default=None, help="cpu, cuda or cuda:N (default: the card)")
     ap.add_argument("--tiny", action="store_true", help="a CPU rehearsal at nf 8, batch 2 x 2000 samples")
     args = ap.parse_args(argv)
     if args.seeds:
-        run_seeds(args, [int(s) for s in args.seeds.split(",")])
+        extra = (lambda s: ["--save-ckpt", str(seed_path(args.save_ckpt, s))]) if args.save_ckpt else None
+        run_seeds(args, [int(s) for s in args.seeds.split(",")], extra=extra)
         return 0
 
     def log(msg):

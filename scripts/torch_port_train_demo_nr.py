@@ -214,11 +214,6 @@ def spread_record(records, steps):
     return demo.spread_record(records, steps, BAR, keep=lambda k: k.startswith(("si_sdr_", "pesq_wb_")))
 
 
-def seed_path(path, seed):
-    path = Path(path)
-    return path.with_name(f"{path.stem}_seed{seed}{path.suffix}")
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("steps", nargs="?", type=int, default=2000)
@@ -239,7 +234,7 @@ def main(argv=None):
                     help="a diagnostic: every hand kernel replaced by its plain PyTorch version")
     args = ap.parse_args(argv)
     if args.seeds:
-        extra = (lambda s: ["--save-ckpt", str(seed_path(args.save_ckpt, s))]) if args.save_ckpt else None
+        extra = (lambda s: ["--save-ckpt", str(demo.seed_path(args.save_ckpt, s))]) if args.save_ckpt else None
         demo.run_seeds(args, [int(s) for s in args.seeds.split(",")], script=__file__,
                        prefix="torch_port_train_demo_nr", spread=spread_record, extra=extra)
         return 0

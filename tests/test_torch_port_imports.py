@@ -41,7 +41,7 @@ def test_scan_covers_the_package():
                                        "legacy_layers.py", "normalization.py", "score_utils.py", "fused_act.py",
                                        "native_io.py", "figures.py", "registry.py", "import_module.py",
                                        "split_dir.py", "stats.py", "linalg.py", "params.py", "bn_update.py",
-                                       "torch_port_train_demo.py"}
+                                       "torch_port_train_demo.py", "torch_port_distill_demo.py"}
     names = [str(p.relative_to(ROOT)) for p in FILES]
     assert {"diffsep_tpu_torch/train/distill.py", "diffsep_tpu_torch/cli/distill.py",
             "diffsep_tpu_torch/cli/evaluate_mp.py", "diffsep_tpu_torch/parallel/mesh.py",
