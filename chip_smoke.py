@@ -134,11 +134,18 @@ phase boundary:
      cli.export_model (ddim N=ART_N) held to the live separate_masked and
      served by cli.separate --model ARTIFACT; the f32 fallback recipe
      (dtype=float32, remat=true) through cli.train.main at 6 x 5 s for
-     F32_WARMUP + F32_TIMED micro-steps with REMAT_PER_STEP launches each,
-     one micro-step's gradients with remat against without (REMAT_TOL of
-     the norm) and both peaks, its kernel shapes timed (float32 at batch 6,
-     against cuDNN as in phase 3) and summed per micro-step; and the
-     flagship on one 70 s mixture, its
+     F32_WARMUP + F32_TIMED micro-steps with REMAT_PER_STEP launches each
+     (the f32 conv's backward on the hand kernels: dx on conv3x3, dw on
+     conv3x3_dw), one micro-step's gradients with remat against without
+     (REMAT_TOL of the norm) and both peaks, its kernel shapes timed
+     (float32 at batch 6, against cuDNN as in phase 3) and summed per
+     micro-step, its dx and dw at each of those shapes held to their plain
+     versions (BWD_TOL of max |plain|) and timed beside cuDNN's
+     convolution_backward and the bound (conv_bound_ms), summed per
+     micro-step, and its device time by kernel group under torch.profiler
+     (no cuDNN conv kernel in it); each option set's
+     micro-step at 2 x 5 s with OPTION_BWD f32 dx and dw launches; and
+     the flagship on one 70 s mixture, its
      blockwise attention (4416 tokens) against the naive one (LONG_TOL of
      scale), device ms and peak of each.
 
@@ -244,6 +251,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 from unittest import mock
 
@@ -343,11 +351,18 @@ SMALL_BACKBONE = {"nf": 32, "ch_mult": (1, 1, 2, 2), "num_res_blocks": 1, "dtype
 # 6 x 5 s: micro-steps around the timing; its launches per micro-step
 # (forward, backward): remat runs each residual and attention block's
 # forward again in the backward (98 of the 106 convs, the 12 in-block FIR
-# downs and 12 ups); remat against no remat, of the gradient norm
+# downs and 12 ups); each f32 conv's backward is a dx on conv3x3 (105: the
+# stem's input takes no gradient) and a dw on conv3x3_dw (106); remat
+# against no remat, of the gradient norm; dx and dw against their plain
+# versions, of max |plain|
 ART_N = 4
 F32_WARMUP, F32_TIMED = 1, 3
-REMAT_PER_STEP = {"conv3x3": (204, 0), "fir_down2x": (30, 18), "fir_up2x": (30, 12)}
-REMAT_TOL = 1e-6
+REMAT_PER_STEP = {"conv3x3": (204, 105), "conv3x3_dw": (0, 106), "fir_down2x": (30, 18), "fir_up2x": (30, 12)}
+REMAT_TOL, BWD_TOL = 1e-6, 2e-5
+# each option set's micro-step at 2 x 5 s: its float32 convs' dx and dw
+# launches (the JAX package's promotions leave these convs in f32; B's
+# learnable transform gives its stem's input a gradient)
+OPTION_BWD = {"A": (1, 1), "B": (92, 92), "C": (31, 31), "D": (77, 77)}
 # blockwise attention: the flagship on one 70 s mixture (4416 tokens at the
 # attention level, past the 4096 threshold), blockwise against naive in
 # float32, of the score's scale
@@ -397,9 +412,14 @@ NR_FLOORS = {"si_sdr_noisy_floor_db": (8.98, 0.01), "pesq_wb_noisy_floor": (1.88
 NR_DISTILL_STAGES, NR_DISTILL_STEPS, NR_DISTILL_POOL = (4, 2), 5, 4
 NR_DISTILL_PER_STEP = DEMO_DISTILL_PER_STEP
 # device time by kernel name fragment (torch.profiler's kernel names)
-OPTION_GROUPS = (("hand conv3x3", ("conv3x3",)), ("hand FIR", ("fir2x",)),
-                 ("cuDNN convs", ("dgrad", "wgrad", "cudnn", "xmma", "implicit_convolve", "conv2d")),
+# (cuDNN's conv kernels are named by their pass, fprop, dgrad or wgrad;
+# cuBLAS's sm80_xmma_gemm_* fall under GEMMs)
+OPTION_GROUPS = (("hand conv3x3 dw", ("conv3x3_dw",)), ("hand conv3x3", ("conv3x3",)), ("hand FIR", ("fir2x",)),
+                 ("cuDNN convs", ("fprop", "dgrad", "wgrad", "cudnn", "implicit_convolve", "conv2d")),
                  ("GEMMs", ("gemm", "Gemm")))
+# the framework's convolution ops whose calls busy_and_host_ms counts: the f32
+# + remat micro-step's conv backward runs on the hand kernels, none of these
+FRAMEWORK_CONV_OPS = ("aten::convolution", "aten::convolution_backward")
 RECORD_KEYS = {"batch_idx", "si_sdr", "si_sir", "si_sar", "pesq", "stoi", "nfe", "runtime", "len_s"}
 # odd-sized FIR downs whose backward is the pads-(2, 2) up (repair F1), and
 # resampling calls that no kernel serves, run plain on the card (F2)
@@ -417,6 +437,9 @@ KERNELS = {
     "fir_up2x": dict(source="diffsep_tpu_torch/csrc/fir_resample2x.cu",
                      replaces="diffsep_tpu/ops/pallas/upfirdn.py:130"),
 }
+# the f32 conv's weight gradient replaces no TPU kernel: the JAX package takes
+# it from XLA's VJP in conv3x3_mxu's backward
+DW_KERNEL = dict(source="diffsep_tpu_torch/csrc/conv3x3.cu", replaces="diffsep_tpu/ops/pallas/conv3x3.py:200")
 
 
 def log(*args):
@@ -513,9 +536,11 @@ def check_kernel(kind, shape, cout, dtype_name, dev, seed, cycles_per_ms, timed=
     library call timed twice, with cudnn.benchmark off (the heuristic's
     algorithm, ``library_heuristic_ms``) and on (the fastest of cuDNN's,
     ``library_benchmark_ms``; ``library_ms`` is the better of the two), the
-    bound of three TF32 products (``bound_3xtf32_ms``), and, on the
-    "tf32x3" plan, its weight split kernel held bit for bit to its plain
-    version and timed alone (``split_ms``: once per call in grad mode)."""
+    bound at the FFMA peak and of three TF32 products (``bound_ffma_ms``,
+    ``bound_3xtf32_ms``; ``bound_ms`` is the plan's, conv_bound_ms), and,
+    on the "tf32x3" plan, its weight split kernel held bit for bit to its
+    plain version and timed alone (``split_ms``: once per call in grad
+    mode)."""
     import torch
     import torch.nn.functional as F
 
@@ -580,18 +605,18 @@ def check_kernel(kind, shape, cout, dtype_name, dev, seed, cycles_per_ms, timed=
     err = (got.float() - want.float()).abs().max().item()
     scale = max(1.0, want.float().abs().max().item())
     lib_err = (got.float() - lib.permute(0, 2, 3, 1).float()).abs().max().item()
-    peak = PEAK_FLOPS["float32"] if kind != "conv3x3" else PEAK_FLOPS[dtype_name]
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    if kind == "conv3x3":
+        bound = conv_bound_ms(flops, nbytes, dtype_name, plan["variant"])
+    else:  # the FIR's multiply-adds run on the CUDA cores in either dtype
+        t_ops, t_bytes = flops / PEAK_FLOPS["float32"] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound = dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                     ops_ms=t_ops, bytes_ms=t_bytes)
     row = dict(
         kernel=kind, shape=list(shape), cout=cout, dtype=dtype_name, plan=plan,
         max_abs_err=err, tol=TOL[dtype_name] * scale, ok=err <= TOL[dtype_name] * scale,
-        library_abs_err=lib_err, ms=None, plain_ms=None, library_ms=None,
-        bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-        ops_ms=t_ops, bytes_ms=t_bytes,
+        library_abs_err=lib_err, ms=None, plain_ms=None, library_ms=None, **bound,
     )
     f32_conv = kind == "conv3x3" and dtype_name == "float32"
-    if f32_conv:
-        row["bound_3xtf32_ms"] = max(3 * flops / TF32_FLOPS * 1e3, t_bytes)
     if plan.get("variant") == "tf32x3":
         split = conv_mod.tf32_split_weight(wt)
         row["split_exact"] = torch.equal(split.view(torch.int32), conv_mod.tf32_split_weight_plain(wt).view(torch.int32))
@@ -614,6 +639,115 @@ def check_kernel(kind, shape, cout, dtype_name, dev, seed, cycles_per_ms, timed=
             row["split_ms"] = time_ms(lambda: conv_mod.tf32_split_weight(wt), cycles_per_ms)
         row["ms_per_library_ms"] = ms / row["library_ms"]
     return row
+
+
+def conv_bound_ms(flops, nbytes, dtype_name, variant):
+    """The least time for a conv's work: the larger of its bytes
+    over HBM's rate and its operations over the peak of the units its plan
+    runs on: three TF32 products on the "tf32x3" plan, else the dtype's
+    (bf16's tensor cores, the FFMA units for float32). A float32 conv also
+    gets both of its float32 figures, at the FFMA peak and as three TF32
+    products (``bound_ffma_ms``, ``bound_3xtf32_ms``)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ffma, t_3xtf32 = flops / PEAK_FLOPS[dtype_name] * 1e3, 3 * flops / TF32_FLOPS * 1e3
+    t_ops = t_3xtf32 if variant == "tf32x3" else t_ffma
+    out = dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+               ops_ms=t_ops, bytes_ms=t_bytes)
+    if dtype_name == "float32":
+        out.update(bound_ffma_ms=max(t_ffma, t_bytes), bound_3xtf32_ms=max(t_3xtf32, t_bytes))
+    return out
+
+
+def conv_bwd_case(shape, cout, dtype_name, dev, seed):
+    """One conv's backward at x ``shape`` -> ``cout`` in ``dtype_name``:
+    random x, HWIO weight ``wt`` and dy from ``seed``; ``library(part)``,
+    cuDNN's convolution_backward for that gradient alone ("dx" or "dw");
+    ``plans``, the port's plan of each (a float32 dx is conv3x3_dx's, a
+    bf16 one the forward kernel's on dy with the flipped weight; a bf16 dw
+    has none, cuDNN computes it); ``bounds``, each gradient's
+    conv_bound_ms, its bytes x, dy and the weight read or written once."""
+    import torch
+
+    from diffsep_tpu_torch.ops import conv3x3 as conv_mod
+
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, h, w, c = shape
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    wt = (torch.randn((3, 3, c, cout), generator=g, device=dev) / (9 * c) ** 0.5).to(dtype)
+    dy = torch.randn((b, h, w, cout), generator=g, device=dev).to(dtype)
+    w_lib = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    lib_args = (dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w_lib, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1)
+    masks = {"dx": [True, False, False], "dw": [False, True, False]}
+
+    def library(part):
+        return torch.ops.aten.convolution_backward(*lib_args, masks[part])
+
+    if dtype == torch.float32:
+        plans = {"dx": conv_mod.plan_conv3x3_dx(b, h, w, c, cout), "dw": conv_mod.plan_conv3x3_dw(b, h, w, c, cout)}
+    else:
+        plans = {"dx": conv_mod.plan_conv3x3(b, h, w, cout, c, dtype), "dw": None}
+    flops = 2.0 * b * h * w * 9 * c * cout
+    nbytes = (x.numel() + dy.numel() + wt.numel()) * x.element_size()
+    bounds = {part: conv_bound_ms(flops, nbytes, dtype_name, p.variant if p else None) for part, p in plans.items()}
+    return types.SimpleNamespace(x=x, wt=wt, dy=dy, library=library, plans=plans, bounds=bounds)
+
+
+def check_conv_bwd(shape, cout, dev, seed, cycles_per_ms):
+    """The float32 conv's backward at x ``shape`` -> ``cout`` (conv_bwd_case):
+    dx (conv3x3_dx, a conv3x3 launch) and dw (conv3x3_dw) each against its
+    plain version (BWD_TOL of max |plain|), timed beside it and beside
+    cuDNN's convolution_backward for that gradient alone (TF32 off,
+    cudnn.deterministic on as the recipe trains), with its plan's bound.
+    Returns the dx row and the dw row."""
+    import torch
+
+    from diffsep_tpu_torch.ops import conv3x3 as conv_mod
+
+    case = conv_bwd_case(shape, cout, "float32", dev, seed)
+    x, wt, dy = case.x, case.wt, case.dy
+    rows = []
+    for part, kern, plain in (
+            ("dx", lambda: conv_mod.conv3x3_dx(dy, wt), lambda: conv_mod.conv3x3_dx_plain(dy, wt)),
+            ("dw", lambda: conv_mod.conv3x3_dw(x, dy), lambda: conv_mod.conv3x3_dw_plain(x, dy))):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            library_ms = time_ms(lambda part=part: case.library(part), cycles_per_ms)
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        p = case.plans[part]
+        rows.append(dict(
+            kernel="conv3x3" if part == "dx" else "conv3x3_dw", part=part, shape=list(shape), cout=cout,
+            dtype="float32", plan=dict(variant=p.variant, bm=p.bm, bn=p.bn, stages=p.stages, splits=p.splits),
+            max_abs_err=err, rel_err=err / scale, tol=BWD_TOL * scale, ok=err <= BWD_TOL * scale,
+            ms=time_ms(kern, cycles_per_ms), plain_ms=time_ms(plain, cycles_per_ms), library_ms=library_ms,
+            **case.bounds[part]))
+    return rows
+
+
+BWD_SUM_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ffma_ms", "bound_3xtf32_ms", "ops_ms", "bytes_ms")
+
+
+def bwd_sums(rows):
+    """The backward rows of ``check_conv_bwd`` summed over their launches per
+    micro-step, for dx and for dw: launches, hand ms by plan, plain, cuDNN,
+    the bound by plan (``bound_ms``, ``bound_by``) and both float32
+    figures."""
+    out = {}
+    for part in ("dx", "dw"):
+        mine = [r for r in rows if r["part"] == part]
+        by_plan = collections.defaultdict(float)
+        for r in mine:
+            by_plan[r["plan"]["variant"]] += r["ms"] * r["launches_per_micro_step"]
+        v = {key: sum(r[key] * r["launches_per_micro_step"] for r in mine) for key in BWD_SUM_KEYS}
+        out[part] = dict(launches=sum(r["launches_per_micro_step"] for r in mine), ms_by_plan=dict(by_plan), **v,
+                         bound_by="operations" if v["ops_ms"] >= v["bytes_ms"] else "bytes",
+                         max_rel_err=max(r["rel_err"] for r in mine))
+    return out
 
 
 def loss_and_grads(model, draws, mix, tgt):
@@ -850,7 +984,8 @@ def train_phase(dev, card, cycles_per_ms, rng, tmp, extra_overrides=()):
     for name, tol in GRAD_TOL.items():
         assert small_check[name] <= tol and loss_rel[name] <= tol, (name, small_check[name], loss_rel[name])
     assert all(counts["kernels"][0].get(k, 0) > 0 for k in TRAIN_PER_STEP), counts
-    assert all(counts["kernels"][1].get(k, 0) > 0 for k in ("fir_down2x", "fir_up2x")), counts
+    assert all(counts["kernels"][1].get(k, 0) > 0 for k in ("fir_down2x", "fir_up2x", "conv3x3", "conv3x3_dw")), \
+        counts
     assert not counts["plain"][0], counts
     return out
 
@@ -2431,8 +2566,10 @@ def randomized_model(config, dev, seed):
 def busy_and_host_ms(run, n):
     """Device busy ms per call (torch.profiler's CUDA kernel and copy time
     over ``n`` calls), host enqueue ms and wall ms per call over ``n``
-    unprofiled back-to-back calls, the idle share 1 - busy / wall, and the
-    device ms by kernel group (OPTION_GROUPS) and of the largest kernels."""
+    unprofiled back-to-back calls, the idle share 1 - busy / wall, the
+    device ms by kernel group (OPTION_GROUPS) and of the largest kernels,
+    and the calls per run of the framework's convolution ops
+    (FRAMEWORK_CONV_OPS)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2448,8 +2585,10 @@ def busy_and_host_ms(run, n):
         for _ in range(n):
             run()
         torch.cuda.synchronize()
-    kernels = []
+    kernels, framework = [], {}
     for e in prof.key_averages():
+        if e.key in FRAMEWORK_CONV_OPS:
+            framework[e.key] = e.count / n
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0)
@@ -2458,11 +2597,14 @@ def busy_and_host_ms(run, n):
     kernels.sort(reverse=True)
     groups = {name: 0.0 for name, _ in OPTION_GROUPS}
     groups["other"] = 0.0
+    def group_of(name):
+        return next((g for g, frags in OPTION_GROUPS if any(f in name for f in frags)), "other")
+
     for ms, _, name in kernels:
-        groups[next((g for g, frags in OPTION_GROUPS if any(f in name for f in frags)), "other")] += ms
+        groups[group_of(name)] += ms
     busy = sum(k[0] for k in kernels)
     return dict(device_busy_ms=busy, enqueue_ms=enqueue_ms, wall_ms=wall_ms, idle_share=1.0 - busy / wall_ms,
-                device_ms_by_group=groups,
+                device_ms_by_group=groups, framework_conv_calls=framework,
                 top_kernels=[dict(ms=ms, launches=c, name=name[:100]) for ms, c, name in kernels[:8]])
 
 
@@ -2490,6 +2632,8 @@ def options_phase(dev, card, cycles_per_ms, tmp, data, checked):
     from diffsep_tpu_torch.ops import _build
     from diffsep_tpu_torch.ops.plain import plain_kernels
     from diffsep_tpu_torch.train.checkpoints import load_payload
+    from diffsep_tpu_torch.train.losses import Draws
+    from diffsep_tpu_torch.train.trainer import make_loss_fn
 
     out, total, checks = {"sets": {}}, collections.Counter(), []
     t_phase = time.perf_counter()
@@ -2530,6 +2674,14 @@ def options_phase(dev, card, cycles_per_ms, tmp, data, checked):
     xs = torch.from_numpy(rng.standard_normal((1, 2, FS)).astype(np.float32))
     ms_ = torch.from_numpy(rng.standard_normal((1, 1, FS)).astype(np.float32))
     ts = torch.tensor([0.4])
+    s_rng = np.random.default_rng(41)
+    tgt_set = torch.from_numpy(0.1 * s_rng.standard_normal((SERVE_BATCH, 2, n), dtype=np.float32)).to(dev)
+    mix_set = tgt_set.sum(dim=1, keepdim=True)
+    set_draws = {"mask": torch.tensor([0.05, 0.5], device=dev),
+                 "z0": torch.from_numpy(s_rng.standard_normal((SERVE_BATCH, 2, n), dtype=np.float32)).to(dev),
+                 "z": torch.from_numpy(s_rng.standard_normal((SERVE_BATCH, 2, n), dtype=np.float32)).to(dev),
+                 "shuffle": torch.from_numpy(s_rng.uniform(size=(SERVE_BATCH, 2)).astype(np.float32)).to(dev),
+                 "time": torch.from_numpy(s_rng.uniform(size=SERVE_BATCH).astype(np.float32)).to(dev)}
     models = {}
     for i, name in enumerate(OPTION_SETS):
         # a. one full-width evaluation: launches, kernel shapes, times
@@ -2548,6 +2700,22 @@ def options_phase(dev, card, cycles_per_ms, tmp, data, checked):
         n_new = hold(seen, f"set {name}")
         _build.reset_counts()
         speed = busy_and_host_ms(evaluate, OPTION_EVALS)
+        # a'. one micro-step of the set at 2 x 5 s: its float32 convs' dx and
+        # dw on the hand kernels, its bf16 convs' on cuDNN
+        _build.reset_counts()
+        sm = model.score_model
+        step_loss = make_loss_fn(sm, model.sde, model.loss_cfg)(Draws(None, set_draws), mix_set, tgt_set)
+        step_loss.backward()
+        torch.cuda.synchronize()
+        sm.zero_grad(set_to_none=True)
+        step_bwd = {k: v for k, v in _build.backward_counts.items() if k.startswith("conv3x3") and v}
+        step_fwd = _build.launch_counts["conv3x3"] - _build.backward_counts["conv3x3"]
+        total.update({k: v for k, v in _build.launch_counts.items() if v})
+        want_bwd = dict(zip(("conv3x3", "conv3x3_dw"), OPTION_BWD[name]))
+        assert np.isfinite(step_loss.item()) and step_fwd == OPTION_PER_EVAL[name]["conv3x3"] \
+            and step_bwd == want_bwd, (name, step_fwd, step_bwd, want_bwd)
+        step_loss_value = step_loss.item()
+        del step_loss
         _build.reset_counts()
         dtypes = collections.Counter()
         for (kind, _, _, dt), cnt in seen.items():
@@ -2573,11 +2741,13 @@ def options_phase(dev, card, cycles_per_ms, tmp, data, checked):
                      "kernels vs plain on the card": (small["kernels"] - small["plain"]).abs().max().item() / scale}
         assert all(torch.isfinite(v).all() for v in small.values()), name
         out["sets"][name] = dict(options=OPTION_SETS[name], launches_per_eval=got, kernel_calls_by_dtype=dict(dtypes),
+                                 micro_step=dict(loss=step_loss_value, conv_forward=step_fwd, conv_backward=step_bwd),
                                  new_kernel_shapes=n_new, **speed, score_scale=score.abs().max().item(),
                                  small_f32=dict(rel_err=small_err, scale=scale, launches=small_launches))
         log(f"[options] set {name} {OPTION_SETS[name]}: launches per evaluation {got} ({dict(dtypes)}); "
             f"{n_new} new kernel shapes held; one evaluation at {SERVE_BATCH} x {SERVE_SECONDS} s over "
-            f"{OPTION_EVALS}: {busy_text(speed)} ({card})")
+            f"{OPTION_EVALS}: {busy_text(speed)} ({card}); a micro-step at {SERVE_BATCH} x {SERVE_SECONDS} s: "
+            f"conv3x3 {step_fwd} forward, backward {step_bwd} (f32 dx, dw)")
         log(f"[options] set {name} nf=32 f32: kernels vs cpu {small_err['kernels vs cpu']:.3g}, kernels vs plain "
             f"on the card {small_err['kernels vs plain on the card']:.3g} of scale {scale:.3g}; launches {small_launches}")
         assert small_err["kernels vs cpu"] <= 1e-3 and small_err["kernels vs plain on the card"] <= 2e-5, small_err
@@ -2728,10 +2898,13 @@ def options_phase(dev, card, cycles_per_ms, tmp, data, checked):
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
+            _build.reset_counts()
             with recording_kernels(grad_shapes[remat]):
                 res[remat] = loss_and_grads(model, draws, mix6, tgt6)
             torch.cuda.synchronize()
             peaks[remat] = torch.cuda.max_memory_allocated() / 2**30
+            if remat:
+                bwd_shapes = collections.Counter(_build.backward_shapes)
     finally:
         torch.backends.cudnn.deterministic = prev
     gr, gn = res[True][1], res[False][1]
@@ -2750,12 +2923,40 @@ def options_phase(dev, card, cycles_per_ms, tmp, data, checked):
         f"{peaks[False]:.2f} without ({card}); {n_new} new kernel shapes held")
     assert remat_err <= REMAT_TOL and peaks[True] < peaks[False], (remat_err, peaks)
     del res, gr, gn
+    torch.cuda.empty_cache()
+
+    # the micro-step's dx and dw at each of its f32 conv shapes: held to the
+    # plain versions, timed beside cuDNN's backward, summed per micro-step
+    bwd_rows = []
+    for (kind, shape, cout), n_dw in sorted(bwd_shapes.items()):
+        if kind != "conv3x3_dw":
+            continue
+        rows = check_conv_bwd(shape, cout, dev, 400 + len(bwd_rows), cycles_per_ms)
+        rows[0]["launches_per_micro_step"] = bwd_shapes.get(("conv3x3", (*shape[:3], cout), shape[3]), 0)
+        rows[1]["launches_per_micro_step"] = n_dw
+        for r in rows:
+            log(f"[options-bwd] f32 + remat micro-step: {r['part']} of {list(shape)}->{cout} "
+                f"x{r['launches_per_micro_step']}:{plan_text(r['plan'])} err {r['rel_err']:.3g} of max |plain| "
+                f"(tol {BWD_TOL}) ms {r['ms']:.4f} plain {r['plain_ms']:.4f} cuDNN {r['library_ms']:.4f} bound "
+                f"{r['bound_ms']:.4f} ({r['bound_by']}; FFMA {r['bound_ffma_ms']:.4f}, 3xTF32 "
+                f"{r['bound_3xtf32_ms']:.4f})")
+        bwd_rows += rows
+    out["f32_remat_backward_checks"] = bwd_rows
+    out["f32_remat_backward_per_micro_step"] = bsum = bwd_sums(bwd_rows)
+    for part, v in bsum.items():
+        plans = ", ".join(f"{k} {x:.3f}" for k, x in sorted(v["ms_by_plan"].items()))
+        log(f"[options] f32 + remat micro-step at {TRAIN_BATCH} x {SERVE_SECONDS} s, {part} ({v['launches']} "
+            f"launches): hand {v['ms']:.3f} ms ({plans}), "
+            f"plain {v['plain_ms']:.3f}, cuDNN deterministic {v['library_ms']:.3f}, bound {v['bound_ms']:.3f} by "
+            f"plan ({v['bound_by']}; {v['bound_ffma_ms']:.3f} all at the FFMA peak, {v['bound_3xtf32_ms']:.3f} all as "
+            f"3 TF32 products); largest error {v['max_rel_err']:.3g} of "
+            f"max |plain| ({card})")
+    assert (bsum["dx"]["launches"], bsum["dw"]["launches"]) == (REMAT_PER_STEP["conv3x3"][1],
+                                                                REMAT_PER_STEP["conv3x3_dw"][1]), bsum
+    assert all(r["ok"] for r in bwd_rows), [r for r in bwd_rows if not r["ok"]]
 
     # where a micro-step's device time goes with remat: one loss and its
     # backward under torch.profiler (cuDNN deterministic, as the run)
-    from diffsep_tpu_torch.train.losses import Draws
-    from diffsep_tpu_torch.train.trainer import make_loss_fn
-
     sm = model.score_model
     sm.backbone.remat = True
     loss_fn = make_loss_fn(sm, model.sde, model.loss_cfg)
@@ -2772,9 +2973,12 @@ def options_phase(dev, card, cycles_per_ms, tmp, data, checked):
     finally:
         torch.backends.cudnn.deterministic = prev
     out["f32_remat_profile"] = prof
-    log(f"[options] f32 + remat micro-step at {TRAIN_BATCH} x {SERVE_SECONDS} s: {busy_text(prof)} ({card})")
+    log(f"[options] f32 + remat micro-step at {TRAIN_BATCH} x {SERVE_SECONDS} s: {busy_text(prof)} ({card}); "
+        f"framework conv calls {prof['framework_conv_calls']}")
     for k in prof["top_kernels"]:
         log(f"[options]   {k['ms']:9.3f} ms {k['launches']:6.0f} x  {k['name']}")
+    assert not prof["framework_conv_calls"].get("aten::convolution_backward"), prof["framework_conv_calls"]
+    assert prof["device_ms_by_group"]["cuDNN convs"] == 0, prof["top_kernels"]
     del model, sm
     torch.cuda.empty_cache()
 
@@ -3875,14 +4079,15 @@ def f32_lib_text(r):
         return ""
     split = f", split pass {r['split_ms']:.4f}" if "split_ms" in r else ""
     return (f" (cuDNN heuristic {r['library_heuristic_ms']:.4f}, benchmark {r['library_benchmark_ms']:.4f}){split}; "
-            f"bound 3xTF32 {r['bound_3xtf32_ms'] * 1e3:.3f} us")
+            f"bound FFMA {r['bound_ffma_ms'] * 1e3:.3f} us, 3xTF32 {r['bound_3xtf32_ms'] * 1e3:.3f} us")
 
 
 def f32_sums(rows, per, kind="conv3x3"):
     """The float32 rows of kernel ``kind`` summed over their launches
     (``per`` names the count): hand kernel ms by plan, plain, the library
     call (for the conv, cuDNN at its best and with its heuristic), the bound
-    (for the conv, at the FFMA peak and as three TF32 products), the conv's
+    by plan (for the conv, also all at the FFMA peak and all as three TF32
+    products), the conv's
     split pass as grad mode runs it, and the shapes where the hand kernel
     is slower than the library call at its best."""
     f32 = [r for r in rows if r["kernel"] == kind and r["dtype"] == "float32" and r.get("ms") is not None]
@@ -3897,7 +4102,8 @@ def f32_sums(rows, per, kind="conv3x3"):
     return dict(launches=sum(r[per] for r in f32), ms=total("ms"), ms_by_plan=dict(by_plan),
                 plain_ms=total("plain_ms"), library_ms=total("library_ms"),
                 library_heuristic_ms=total("library_heuristic_ms"), library_benchmark_ms=total("library_benchmark_ms"),
-                bound_ms=total("bound_ms"), bound_3xtf32_ms=total("bound_3xtf32_ms"), split_ms=total("split_ms"),
+                bound_ms=total("bound_ms"), bound_ffma_ms=total("bound_ffma_ms"),
+                bound_3xtf32_ms=total("bound_3xtf32_ms"), split_ms=total("split_ms"),
                 slower_than_library=[[r["shape"], r["cout"], r["ms"], r["library_ms"]] for r in f32
                                      if r["ms"] > r["library_ms"]])
 
@@ -3907,8 +4113,9 @@ def f32_text(f):
     plans = ", ".join(f"{k} {x:.3f}" for k, x in sorted(f["ms_by_plan"].items()))
     return (f"hand {v['ms']} ms ({plans}; split passes {v['split_ms']} more in grad mode), plain "
             f"{v['plain_ms']}, cuDNN best {v['library_ms']} (heuristic {v['library_heuristic_ms']}, "
-            f"benchmark {v['library_benchmark_ms']}), bound {v['bound_ms']} at the FFMA peak, "
-            f"{v['bound_3xtf32_ms']} as 3 TF32 products; slower than cuDNN at {f['slower_than_library']}")
+            f"benchmark {v['library_benchmark_ms']}), bound {v['bound_ms']} by plan ({v['bound_ffma_ms']} all at the "
+            f"FFMA peak, {v['bound_3xtf32_ms']} all as 3 TF32 products); slower than cuDNN at "
+            f"{f['slower_than_library']}")
 
 
 def plan_text(plan):
@@ -4194,6 +4401,10 @@ def main() -> int:
     # points, the enhancement phase, distillation with the artifact and
     # phase 10 (its ranks' launches, reported by each rank's process)
     serve_counts = serve["reverse_diffusion+ald2 N=30"]["launches"]
+
+    def set_backward(kernel):  # backward launches of each option set's micro-step, as phase 12 counted them
+        return {name: v["micro_step"]["conv_backward"].get(kernel, 0) for name, v in report["options"]["sets"].items()}
+
     summary = []
     for k, meta in KERNELS.items():
         rows = [r for r in results if r["kernel"] == k]
@@ -4275,7 +4486,27 @@ def main() -> int:
             enhance_train_library_ms=per_step_sum("library_ms", enh_tr),
             float32_per_eval=f32_sums(rows, "launches_per_eval", k),
             float32_per_f32_remat_micro_step=f32_remat,
+            float32_dx_per_f32_remat_micro_step=(report["options"]["f32_remat_backward_per_micro_step"]["dx"]
+                                                 if k == "conv3x3" else None),
+            dx_launches_per_option_set_micro_step=(set_backward("conv3x3") if k == "conv3x3" else None),
         ))
+    # the f32 conv's weight gradient: launches over every path, its errors
+    # and times at the f32 + remat micro-step's shapes (phase 12), summed
+    # over that micro-step's launches
+    counters = [serve_counts, train["launches"], entry_counts, enh_counts, dist_counts, ddp_counts, option_counts,
+                slice12_counts, legacy_counts, demo_counts, demo_nr_counts]
+    dw_rows = [r for r in report["options"]["f32_remat_backward_checks"] if r["part"] == "dw"]
+    dw = report["options"]["f32_remat_backward_per_micro_step"]["dw"]
+    summary.append(dict(
+        name="conv3x3_dw", route="cuda", source=DW_KERNEL["source"], replaces=DW_KERNEL["replaces"],
+        launches=sum(c.get("conv3x3_dw", 0) for c in counters),
+        max_abs_err=max(r["max_abs_err"] for r in dw_rows), ms=dw["ms"], plain_ms=dw["plain_ms"],
+        bound_ms=dw["bound_ms"], bound_by=dw["bound_by"],
+        library_ms=dw["library_ms"], per="f32 + remat micro-step", max_rel_err=dw["max_rel_err"],
+        ms_by_plan=dw["ms_by_plan"], bound_ffma_ms=dw["bound_ffma_ms"], bound_3xtf32_ms=dw["bound_3xtf32_ms"],
+        launches_per_f32_remat_micro_step=dw["launches"],
+        launches_per_option_set_micro_step=set_backward("conv3x3_dw"),
+    ))
     report["summary"] = summary
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)

@@ -81,6 +81,12 @@
 // fixed order, adds the bias and rounds to the output's type. No atomics,
 // so the result is bitwise deterministic.
 //
+// The float32 backward. dx is this file's forward conv of dy with the
+// weight flipped and transposed (conv3x3_tf32_split_weight makes its split
+// operand with `flip`). dw, the weight gradient, is a kernel of its own
+// (conv3x3_dw_tf32x3_kernel, conv3x3_dw_f32_kernel; entry conv3x3_dw): see
+// its note below.
+//
 // "generic" (f32 outside "tf32x3": Cin = 6, Cout = 6, other channel counts;
 // bf16 with Cin not a multiple of 32, as the stem's Cin = 6, or with Cout
 // >= 64 off the N tiles; operands not 16-byte aligned): each block computes
@@ -488,14 +494,27 @@ conv3x3_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
 // Split-K's second pass: out = T(sum over z in order of partial[z] + bias).
 template <typename T>
-__global__ void conv3x3_splitk_reduce(const float* __restrict__ partial, const T* __restrict__ bias,
-                                      T* __restrict__ out, int splits, int mn, int cout) {
+__device__ __forceinline__ void splitk_reduce(const float* __restrict__ partial, const T* __restrict__ bias,
+                                              T* __restrict__ out, int splits, int mn, int cout) {
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < mn; e += gridDim.x * blockDim.x) {
     float v = 0.f;
     for (int z = 0; z < splits; ++z) v += partial[(size_t)z * mn + e];
     if (bias) v += to_f32(bias[e % cout]);
     out[e] = from_f32<T>(v);
   }
+}
+
+template <typename T>
+__global__ void conv3x3_splitk_reduce(const float* __restrict__ partial, const T* __restrict__ bias,
+                                      T* __restrict__ out, int splits, int mn, int cout) {
+  splitk_reduce<T>(partial, bias, out, splits, mn, cout);
+}
+
+// The weight gradient's, under a name of its own (a profile's kernel names
+// then tell its time from the forward's).
+__global__ void conv3x3_dw_splitk_reduce(const float* __restrict__ partial, float* __restrict__ out, int splits,
+                                         int mn) {
+  splitk_reduce<float>(partial, nullptr, out, splits, mn, 1);
 }
 
 // "tma": the levels from 32 x 40 up. A tile is a patch of 8 MW x TMA_W
@@ -964,15 +983,27 @@ __host__ __device__ constexpr size_t tf32x3_smem_bytes(int nwg, int bn, int stag
   return 1024 + (size_t)stages * (nwg * 64 * A_ROW_BYTES + 2 * bn * 128);
 }
 
-// The K-major split weight: hi at split[n * K + k], lo at split[Cout * K +
-// n * K + k], for the HWIO weight seen as (K = 9 Cin, Cout), its slices
-// permuted as above. A 32 x 32 tile per block, transposed through shared
-// memory so that both the reads and the writes are coalesced.
-__global__ void conv3x3_tf32_split_weight(const float* __restrict__ w, float* __restrict__ split, int K, int cout) {
-  __shared__ float tile[32][33];
+// The K-major split operand: hi at split[n * K + k], lo at split[Cout * K +
+// n * K + k], for a row-major (K, Cout) source, its slices permuted as
+// above. The source is the HWIO weight seen as (K = 9 Cin, Cout); or dy seen
+// as (B H W, Cout), the weight-gradient kernel's B operand, whose rows past
+// `rows` (up to K, a multiple of 32) are zero; or, with `flip`, the weight
+// of dx = conv(dy, w'), w'[kh][kw][co][ci] = w[2 - kh][2 - kw][ci][co], read
+// from the forward's HWIO weight w (3, 3, cout, K / 9). A 32 x 32 tile per
+// block, transposed through shared memory so that both the reads and the
+// writes are coalesced.
+__device__ __forceinline__ void split_operand(const float* __restrict__ w, float* __restrict__ split, int rows,
+                                              int K, int cout, int flip) {
+  __shared__ float tile[32][33];  // tile[k - k0][n - n0]
   const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32, tx = threadIdx.x;
-  for (int r = threadIdx.y; r < 32; r += blockDim.y)
-    tile[r][tx] = k0 + r < K && n0 + tx < cout ? w[(size_t)(k0 + r) * cout + n0 + tx] : 0.f;
+  if (flip) {  // w'[k][n] = w[8 - k / cin][n][k % cin]: k contiguous in w
+    const int cin = K / 9, k = k0 + tx;
+    for (int r = threadIdx.y; r < 32; r += blockDim.y)
+      tile[tx][r] = k < K && n0 + r < cout ? w[((size_t)(8 - k / cin) * cout + n0 + r) * cin + k % cin] : 0.f;
+  } else {
+    for (int r = threadIdx.y; r < 32; r += blockDim.y)
+      tile[r][tx] = k0 + r < rows && n0 + tx < cout ? w[(size_t)(k0 + r) * cout + n0 + tx] : 0.f;
+  }
   __syncthreads();
   const int kk = tx / 8, c = tx % 8, src = 8 * (c % 4) + 2 * kk + c / 4;  // K slices start at multiples of 32
   for (int r = threadIdx.y; r < 32; r += blockDim.y) {
@@ -983,6 +1014,17 @@ __global__ void conv3x3_tf32_split_weight(const float* __restrict__ w, float* __
     split[(size_t)n * K + k] = __uint_as_float(hi);
     split[(size_t)cout * K + (size_t)n * K + k] = __uint_as_float(hopper::to_tf32(v - __uint_as_float(hi)));
   }
+}
+
+__global__ void conv3x3_tf32_split_weight(const float* __restrict__ w, float* __restrict__ split, int rows, int K,
+                                          int cout, int flip) {
+  split_operand(w, split, rows, K, cout, flip);
+}
+
+// dy's split copy for the weight gradient, under a name of its own.
+__global__ void conv3x3_dw_split_dy(const float* __restrict__ dy, float* __restrict__ split, int rows, int K,
+                                    int cout) {
+  split_operand(dy, split, rows, K, cout, 0);
 }
 
 // NWG consumer warpgroups of 64 rows each (BM = 64 NWG), all of whose
@@ -1111,6 +1153,248 @@ conv3x3_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ wsp
   const int row = m0 + row0;
   const int rows[2] = {row < s.M ? row : -1, row + 8 < s.M ? row + 8 : -1};
   store_tile<BN, NARROW>(acc, rows, n0, s, bias, out, partial, splits);
+}
+
+// ---------------------------------------------------------------------------
+// The weight gradient, dw[kh][kw][ci][co] = sum over (b, h, w) of
+// x[b][h + kh - 1][w + kw - 1][ci] dy[b][h][w][co] (zero outside the image).
+//
+// Replaces no TPU kernel: the JAX package takes this gradient from XLA's
+// VJP of the reference conv (diffsep_tpu/ops/pallas/conv3x3.py:200-206,
+// conv3x3_mxu's _bwd). An implicit GEMM with a small output and a long
+// reduction:
+//   M = 9 Cin rows (tap, channel), N = Cout, K = B H W pixels,
+//   A[(tap, ci)][p] = x at pixel p shifted by the tap, B[p][co] = dy[p][co].
+// What bounds it: operations, 2 M N K, as the forward's (145 GFLOP against
+// 0.5 GB of x and dy at the flagship's top level, 128 -> 128 channels at
+// batch 6); next, bytes (x, dy and the split copy of dy below). The K walk
+// splits over the SMs (grid z), each split writing an f32 partial of its
+// tile; conv3x3_dw_splitk_reduce sums the partials in order, so the result is
+// bitwise deterministic (no atomics).
+//
+// "tf32x3" (Cin % 32 == 0, Cout % 32 == 0): the forward's split-operand
+// TF32 on wgmma, three products per k8 step. tf32 wgmma reads B K-major
+// only, and dy is pixel-major, so a pass of its own (conv3x3_dw_split_dy,
+// once per call) writes dy transposed, split into hi and lo and permuted per
+// 32-pixel slice as the forward's weight, zero past the last pixel: the main
+// loop then streams B through the forward's cp.async ring unchanged, and the
+// pass costs 12 bytes per dy element (read once, hi and lo written), against
+// a transpose and split of every B slice in each of the 9 Cin / BM row
+// tiles that read it. A comes from registers: each thread's two rows are
+// channels ci and ci + 1 of one tap, and its eight pixels of a slice are
+// 8 t .. 8 t + 7 (t = lane % 4), the columns the permutation gives its
+// fragments; it loads them as float2 straight from x (L1 and L2 serve the
+// taps' overlapping reads; no halo to stage), predicated to zero at the
+// SAME padding and past the last pixel, a slice ahead, and splits them in
+// registers as the forward splits its A rows. The tensor cores' f32
+// accumulation does not round to nearest, so over a split's walk of up to
+// ~2 x 10^4 wgmma its error would grow with their count, past float32's
+// accuracy: each slice's 12 wgmma start from zero (scale-d 0) and the
+// thread adds their sum into f32 registers of its own, rounded to nearest,
+// once the group has completed.
+template <int NWG, int BN, int STAGES>
+__global__ void __launch_bounds__(NWG * 128, 1)
+conv3x3_dw_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ dyt, float* __restrict__ out,
+                         float* __restrict__ partial, Shape s, int kp, int splits) {
+  static_assert(STAGES >= 3, "loads run STAGES - 2 slices ahead of the wgmma groups in flight");
+  static_assert(BN == 32 || BN == 64 || BN == 128, "tile width");
+  constexpr int THREADS = NWG * 128, BM = NWG * 64;
+  constexpr int B_BYTES = BN * 128, STAGE_BYTES = 2 * B_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t ring = (hopper::smem_addr(smem_raw) + 1023u) & ~1023u;
+
+  const int tid = threadIdx.x, lane = tid & 31, t = lane & 3;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int k_tiles = kp / F32_SLICE;
+  const int kt0 = (int)((long long)blockIdx.z * k_tiles / splits);
+  const int nk = (int)((long long)(blockIdx.z + 1) * k_tiles / splits) - kt0;
+  const size_t half = (size_t)s.Cout * kp;  // lo's offset in dyt
+  Shape o = s;  // the output (9 Cin, Cout), as store_tile indexes it
+  o.M = 9 * s.Cin;
+
+  // Fragment rows lane / 4 and lane / 4 + 8 of this thread's warp are rows
+  // mrow and mrow + 1 of dw: channels ci, ci + 1 of tap `tap`.
+  const int mrow = m0 + (tid >> 5) * 16 + 2 * (lane >> 2);
+  const bool row_ok = mrow < o.M;
+  const int tap = row_ok ? mrow / s.Cin : 0;
+  const int ci = mrow - tap * s.Cin, ddy = tap / 3 - 1, ddx = tap % 3 - 1;
+
+  auto load_b = [&](int stage, int kt) {
+    const uint32_t st = ring + stage * STAGE_BYTES;
+#pragma unroll
+    for (int q = tid; q < BN * 8; q += THREADS) {
+      const int r = q / 8, cc = q % 8;
+      const float* src = dyt + (size_t)(n0 + r) * kp + kt * F32_SLICE + cc * 4;
+      const uint32_t dst = st + hopper::swizzle128(r, cc);
+      hopper::cp_async16(dst, src, true);
+      hopper::cp_async16(dst + B_BYTES, src + half, true);
+    }
+  };
+  // v[8 h + e]: channel ci + h at pixel 32 kt + 8 t + e, shifted by the tap
+  auto load_a = [&](float (&v)[16], int kt) {
+    const int p0 = kt * F32_SLICE + 8 * t;
+    int w = p0 % s.W, h = (p0 / s.W) % s.H;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const bool ok = row_ok && p0 + e < s.M && (unsigned)(h + ddy) < (unsigned)s.H &&
+                      (unsigned)(w + ddx) < (unsigned)s.W;
+      float2 a = make_float2(0.f, 0.f);
+      if (ok) a = __ldg(reinterpret_cast<const float2*>(x + (size_t)(p0 + e + ddy * s.W + ddx) * s.Cin + ci));
+      v[e] = a.x;
+      v[8 + e] = a.y;
+      if (++w == s.W) {
+        w = 0;
+        if (++h == s.H) h = 0;
+      }
+    }
+  };
+
+#pragma unroll
+  for (int p = 0; p < STAGES - 2; ++p) {
+    if (p < nk) load_b(p, kt0 + p);
+    hopper::cp_async_commit();
+  }
+  float v[16];
+  if (nk > 0) load_a(v, kt0);
+  float acc[BN / 2], sum[BN / 2];  // the slice's wgmma group's sum; the walk's
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = sum[i] = 0.f;
+  uint32_t hi[4][4], lo[4][4];  // this slice's A fragments: register r of k8 step kk
+  for (int i = 0; i < nk; ++i) {
+    // B of slice i has landed for this thread; the barrier makes it whole,
+    // and (each warpgroup having waited for its wgmma of slice i - 2 in
+    // the previous iteration) frees the buffer refilled below.
+    hopper::cp_async_wait<STAGES - 3>();
+    hopper::fence_proxy_async();
+    __syncthreads();
+    const uint32_t st = ring + (i % STAGES) * STAGE_BYTES;
+    hopper::wgmma_wait<0>();  // slice i - 1's group has completed and read the fragments
+    hopper::fence_regs(acc);
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) sum[j] += acc[j];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {  // register r: row h = r & 1, pixel 8 t + 2 kk + (r >> 1)
+        const float a = v[8 * (r & 1) + 2 * kk + (r >> 1)];
+        hi[kk][r] = hopper::to_tf32(a);
+        lo[kk][r] = hopper::to_tf32(a - __uint_as_float(hi[kk][r]));
+      }
+    if (i + 1 < nk) load_a(v, kt0 + i + 1);  // in flight under this slice's products
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+    const uint32_t b_hi = st, b_lo = st + B_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hopper::wgmma_tf32_m64k8(acc, hi[kk], hopper::desc_sw128(b_lo + kk * 32, 16, 1024), kk > 0);
+      hopper::wgmma_tf32_m64k8(acc, lo[kk], hopper::desc_sw128(b_hi + kk * 32, 16, 1024));
+      hopper::wgmma_tf32_m64k8(acc, hi[kk], hopper::desc_sw128(b_hi + kk * 32, 16, 1024));
+    }
+    hopper::wgmma_commit();
+    hopper::fence_regs(acc);
+    const int next = i + STAGES - 2;
+    if (next < nk) load_b(next % STAGES, kt0 + next);
+    hopper::cp_async_commit();
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+  if (nk > 0) {
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) sum[j] += acc[j];
+  }
+  const int rows[2] = {row_ok ? mrow : -1, row_ok ? mrow + 1 : -1};  // 9 Cin is even: both or neither
+  store_tile<BN, false>(sum, rows, n0, o, static_cast<const float*>(nullptr), out, partial, splits);
+}
+
+// "generic" weight gradient (channels off the tf32x3 grid: the stem's Cin =
+// 6, the output convs' Cout of 2-6): CUDA cores in full float32. Each block
+// takes a BM_ x BN_ tile of (9 Cin, Cout) over its split of the pixels,
+// staging per 32-pixel slice the shifted x (zero at the padding) and dy in
+// shared memory. A thread gathers x for fixed rows (its tap's offset and
+// channel worked out once; neighbouring threads on neighbouring channels)
+// and holds TM rows (strided by the thread rows, so that the row reads are
+// conflict-free) x 8 columns of the sum.
+template <int BM_, int BN_>
+__global__ void __launch_bounds__(THREADS)
+conv3x3_dw_f32_kernel(const float* __restrict__ x, const float* __restrict__ dy, float* __restrict__ out,
+                      float* __restrict__ partial, Shape s, int splits) {
+  constexpr int TX = BN_ / 8, TY = THREADS / TX, TM = BM_ / TY;
+  constexpr int GR = BM_ >= THREADS ? BM_ / THREADS : 1;  // rows a thread gathers
+  constexpr int GK = BM_ >= THREADS ? 1 : THREADS / BM_;  // threads per gathered row
+  static_assert(TM * TY == BM_ && TX * 8 == BN_ && GR * THREADS == BM_ * GK, "thread tile");
+  __shared__ float As[BK][BM_ + 1];  // As[p][m]: row m's shifted x at pixel p of the slice
+  __shared__ __align__(16) float Bs[BK][BN_];
+  __shared__ int ph[BK], pw[BK];  // the slice's pixels; ph < 0 past the last one
+  const int rows = 9 * s.Cin;
+  const int m0 = blockIdx.x * BM_, n0 = blockIdx.y * BN_;
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int k_tiles = (s.M + BK - 1) / BK;
+  const int kt0 = (int)((long long)blockIdx.z * k_tiles / splits);
+  const int kt1 = (int)((long long)(blockIdx.z + 1) * k_tiles / splits);
+  // the gathered rows m0 + tid % BM_ + r * THREADS: tap offset and channel
+  int gdy[GR], gdx[GR], goff[GR];
+#pragma unroll
+  for (int r = 0; r < GR; ++r) {
+    const int m = m0 + tid % BM_ + r * THREADS, tap = m < rows ? m / s.Cin : -1;
+    gdy[r] = tap < 0 ? -s.H - 2 : tap / 3 - 1;  // a row past 9 Cin is never in range
+    gdx[r] = tap % 3 - 1;
+    goff[r] = (gdy[r] * s.W + gdx[r]) * s.Cin + (m - tap * s.Cin);
+  }
+  float acc[TM][8];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int p0 = kt * BK;
+    if (tid < BK) {
+      const int p = p0 + tid;
+      ph[tid] = p < s.M ? (p / s.W) % s.H : -s.H - 4;
+      pw[tid] = p % s.W;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < GR; ++r)
+#pragma unroll
+      for (int kl = tid / BM_ % GK; kl < BK; kl += GK) {  // unrolled: the loads in flight together
+        const bool ok = (unsigned)(ph[kl] + gdy[r]) < (unsigned)s.H && (unsigned)(pw[kl] + gdx[r]) < (unsigned)s.W;
+        As[kl][tid % BM_ + r * THREADS] = ok ? x[(size_t)(p0 + kl) * s.Cin + goff[r]] : 0.f;
+      }
+    for (int e = tid; e < BK * BN_; e += THREADS) {
+      const int nl = e % BN_, kl = e / BN_, n = n0 + nl;
+      Bs[kl][nl] = p0 + kl < s.M && n < s.Cout ? dy[(size_t)(p0 + kl) * s.Cout + n] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + i * TY];
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 8]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 8 + 4]);
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty + i * TY;
+    if (m >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + tx * 8 + j;
+      if (n >= s.Cout) continue;
+      if (splits > 1)
+        partial[((size_t)blockIdx.z * rows + m) * s.Cout + n] = acc[i][j];
+      else
+        out[(size_t)m * s.Cout + n] = acc[i][j];
+    }
+  }
 }
 
 struct Args {
@@ -1247,6 +1531,44 @@ cudaError_t launch_tf32x3(const Args& a, const Shape& s, int splits, cudaStream_
   return cudaGetLastError();
 }
 
+void launch_split(const float* src, float* split, int rows, int K, int cout, int flip, cudaStream_t stream) {
+  conv3x3_tf32_split_weight<<<dim3(K / 32, (cout + 31) / 32), dim3(32, 8), 0, stream>>>(src, split, rows, K, cout,
+                                                                                         flip);
+}
+
+// The weight gradient's "tf32x3" instances: BM = 128 rows of (9 Cin), BN
+// of Cout, a ring of 4 stages of dy's split slices.
+constexpr int DW_NWG = 2, DW_STAGES = 4;
+
+__host__ __device__ constexpr size_t dw_tf32x3_smem_bytes(int bn, int stages) {
+  return 1024 + (size_t)stages * 2 * bn * 128;
+}
+
+template <int BN>
+cudaError_t launch_dw_tf32x3(const float* x, const float* dy, float* dyt, float* out, float* partial, const Shape& s,
+                             int kp, int splits, cudaStream_t stream) {
+  auto kernel = conv3x3_dw_tf32x3_kernel<DW_NWG, BN, DW_STAGES>;
+  static std::atomic<uint64_t> allowed{0};
+  const cudaError_t attr = hopper::allow_dynamic_smem(kernel, 232448, allowed);
+  if (attr != cudaSuccess) return attr;
+  if (s.Cin % F32_SLICE || s.Cout % BN || kp % F32_SLICE || kp < s.M || dyt == nullptr || splits < 1 ||
+      splits > kp / F32_SLICE || (splits > 1 && partial == nullptr))
+    return cudaErrorInvalidValue;
+  conv3x3_dw_split_dy<<<dim3(kp / 32, (s.Cout + 31) / 32), dim3(32, 8), 0, stream>>>(dy, dyt, s.M, kp, s.Cout);
+  const dim3 grid((9 * s.Cin + DW_NWG * 64 - 1) / (DW_NWG * 64), s.Cout / BN, splits);
+  kernel<<<grid, DW_NWG * 128, dw_tf32x3_smem_bytes(BN, DW_STAGES), stream>>>(x, dyt, out, partial, s, kp, splits);
+  return cudaSuccess;
+}
+
+template <int BM_, int BN_>
+cudaError_t launch_dw_generic(const float* x, const float* dy, float* out, float* partial, const Shape& s, int splits,
+                              cudaStream_t stream) {
+  if (splits < 1 || splits > (s.M + BK - 1) / BK || (splits > 1 && partial == nullptr)) return cudaErrorInvalidValue;
+  const dim3 grid((9 * s.Cin + BM_ - 1) / BM_, (s.Cout + BN_ - 1) / BN_, splits);
+  conv3x3_dw_f32_kernel<BM_, BN_><<<grid, THREADS, 0, stream>>>(x, dy, out, partial, s, splits);
+  return cudaSuccess;
+}
+
 template <int VARIANT, int NWG, int BN, int STAGES>
 cudaError_t launch_plan(const Args& a, const Shape& s, int splits, int blocks, cudaStream_t stream) {
   if constexpr (VARIANT == 3)  // bm = NWG * 64 = 128 MW: MW m64 blocks per consumer warpgroup
@@ -1342,15 +1664,60 @@ extern "C" int conv3x3_nhwc(const void* x, const void* w, const void* bias, void
 
 // w: the float32 HWIO weight (3, 3, Cin, Cout), contiguous; split: (2, Cout,
 // 9 Cin) float32, filled with the tf32x3 kernel's operand (hi, then lo; see
-// conv3x3_tf32_split_weight). Cin % 32 == 0. Returns the cudaError_t of the
-// launch.
-extern "C" int conv3x3_tf32_split(const void* w, void* split, int Cin, int Cout, int device, void* stream) {
+// conv3x3_tf32_split_weight). Cin % 32 == 0. With flip != 0, the operand
+// of dx = conv(dy, w') instead: split is (2, Cin, 9 Cout) and Cout % 32 ==
+// 0. Returns the cudaError_t of the launch.
+extern "C" int conv3x3_tf32_split(const void* w, void* split, int Cin, int Cout, int flip, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaGetLastError();
-  if (Cin % F32_SLICE != 0) return (int)cudaErrorInvalidValue;
-  const int K = 9 * Cin;
-  conv3x3_tf32_split_weight<<<dim3(K / 32, (Cout + 31) / 32), dim3(32, 8), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(w), static_cast<float*>(split), K, Cout);
+  const int cin = flip ? Cout : Cin, cout = flip ? Cin : Cout;  // of the conv the operand serves
+  if (cin % F32_SLICE != 0) return (int)cudaErrorInvalidValue;
+  launch_split(static_cast<const float*>(w), static_cast<float*>(split), 9 * cin, 9 * cin, cout, flip,
+               static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}
+
+// The weight gradient of the conv of x (B, H, W, Cin) that gave the output
+// gradient dy (B, H, W, Cout), both float32 and contiguous: out (3, 3, Cin,
+// Cout) float32. variant 5 = tf32x3 (Cin % 32 == 0, Cout % bn == 0, bn 32,
+// 64 or 128; dyt: (2, Cout, kp) float32 scratch for dy's split copy, kp =
+// B H W rounded up to a multiple of 32; x 8-byte aligned), 0 = generic (bn
+// 64, or 8 where Cout <= 8: tiles of 64 x 64 or 256 x 8; dyt, kp unused).
+// partial: f32 (splits, 9 Cin, Cout) when splits > 1, else unused. Returns
+// the cudaError_t of the launches (0 on success).
+extern "C" int conv3x3_dw(const void* x, const void* dy, void* dyt, void* out, void* partial, int B, int H, int W,
+                          int Cin, int Cout, int variant, int bn, int splits, int kp, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Shape s;
+  s.B = B;
+  s.H = H;
+  s.W = W;
+  s.Cin = Cin;
+  s.Cout = Cout;
+  s.M = B * H * W;
+  s.K = 9 * Cin;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float *xf = static_cast<const float*>(x), *dyf = static_cast<const float*>(dy);
+  float *dytf = static_cast<float*>(dyt), *outf = static_cast<float*>(out), *pf = static_cast<float*>(partial);
+  cudaGetLastError();
+  if (variant == 5 && bn == 128)
+    err = launch_dw_tf32x3<128>(xf, dyf, dytf, outf, pf, s, kp, splits, st);
+  else if (variant == 5 && bn == 64)
+    err = launch_dw_tf32x3<64>(xf, dyf, dytf, outf, pf, s, kp, splits, st);
+  else if (variant == 5 && bn == 32)
+    err = launch_dw_tf32x3<32>(xf, dyf, dytf, outf, pf, s, kp, splits, st);
+  else if (variant == 0 && bn == 64)
+    err = launch_dw_generic<64, 64>(xf, dyf, outf, pf, s, splits, st);
+  else if (variant == 0 && bn == 8 && Cout <= 8)
+    err = launch_dw_generic<256, 8>(xf, dyf, outf, pf, s, splits, st);
+  else
+    err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  if (splits > 1) {
+    const int mn = 9 * Cin * Cout;
+    conv3x3_dw_splitk_reduce<<<(mn + 255) / 256, 256, 0, st>>>(pf, outf, splits, mn);
+  }
   return (int)cudaGetLastError();
 }

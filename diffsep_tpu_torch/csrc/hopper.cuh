@@ -281,17 +281,32 @@ __device__ __forceinline__ void wgmma_m64k16(float (&d)[128], uint64_t desc_a, u
 // d += A (64 x 8, tf32 from registers: a[0..3] hold rows 16 warp + lane / 4
 // (+ 8 for a[1], a[3]), columns lane % 4 (+ 4 for a[2], a[3]): the m16n8k8
 // layout per warp) * B (8 x N, K-major in shared memory; tf32 takes no
-// transpose), one wrapper per N as above.
-__device__ __forceinline__ void wgmma_tf32_m64k8(float (&d)[4], const uint32_t (&a)[4], uint64_t desc_b) {
+// transpose), one wrapper per N as above; scale_d = 0: d = A * B.
+__device__ __forceinline__ void wgmma_tf32_m64k8(float (&d)[4], const uint32_t (&a)[4], uint64_t desc_b,
+                                                 int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_tf32_m64k8(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+__device__ __forceinline__ void wgmma_tf32_m64k8(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b,
+                                                 int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64k8(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+                                                 int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
@@ -303,10 +318,11 @@ __device__ __forceinline__ void wgmma_tf32_m64k8(float (&d)[32], const uint32_t 
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_tf32_m64k8(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+__device__ __forceinline__ void wgmma_tf32_m64k8(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+                                                 int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
@@ -324,7 +340,7 @@ __device__ __forceinline__ void wgmma_tf32_m64k8(float (&d)[64], const uint32_t 
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 // float32 -> tf32 (10 mantissa bits), round to nearest with ties away from

@@ -57,11 +57,32 @@ call as one node and the exported program launches the kernel, counted as
 here. The alignment test that picks the generic kernel reads data
 pointers, so it lives in the real implementation only.
 
-Gradients. The op's autograd (``torch.library.register_autograd``) is the
-framework conv's backward, as ``conv3x3_mxu`` (``conv3x3.py:190-205``)
-takes XLA's: dx and dw from ``aten.convolution_backward`` (cuDNN on the
-card) on the NHWC tensors viewed as channels-last NCHW, db a sum over (B,
-H, W). The backward launches no kernel of ``csrc/`` and counts nothing.
+Gradients. The op's autograd (``torch.library.register_autograd``) takes
+the route of the input's type:
+
+- float32 on the card: hand kernels, where ``conv3x3_mxu``
+  (``diffsep_tpu/ops/pallas/conv3x3.py:190-208``) takes XLA's VJP. dx is
+  the forward conv of dy with the weight flipped and transposed,
+  w'[kh, kw, co, ci] = w[2 - kh, 2 - kw, ci, co] (exact for a 3 x 3
+  stride-1 SAME conv): one ``conv3x3`` call on ``plan_conv3x3_dx``'s plan
+  (the forward's plan for Cout -> Cin, a "tf32x3" one split to at most
+  DX_MAX_SLICES slices a split for float32 accuracy), "tf32x3" reading w'
+  split by the split pass with its flip on every backward call, "generic"
+  a flipped HWIO copy; none where x takes no gradient (the stem). dw runs
+  ``conv3x3_dw`` (csrc/conv3x3.cu) on ``plan_conv3x3_dw``'s plan: "tf32x3"
+  (Cin % 32 == 0, Cout % 32 == 0) on ``wgmma`` with split operands, else
+  "generic" on the CUDA cores, its pixels split over the SMs and the
+  partials summed in a fixed order (bitwise deterministic).
+- bfloat16 on the card: ``aten.convolution_backward`` (cuDNN) on the NHWC
+  tensors viewed as channels-last NCHW: at the recipe's shapes its dx and
+  dw take 6.0 + 6.7 ms per micro-step, and the hand bf16 forward run as
+  dx 8.6 (H100; ``scripts/torch_port_conv_plans.py --backward --dtype
+  bfloat16``).
+- the CPU: ``aten.convolution_backward`` as well (the plain route).
+
+db is a sum over (B, H, W). A dx launch counts one ``conv3x3`` launch and a
+dw launch one ``conv3x3_dw`` launch, both as backward launches; the
+bfloat16 and CPU routes count nothing.
 
 The weight is HWIO (3, 3, Cin, Cout) and contiguous, the layout the kernels
 read; ``models.layers.Conv`` keeps the OIHW parameter of the reference
@@ -83,13 +104,15 @@ from . import _build
 
 Tensor = torch.Tensor
 
-__all__ = ["ConvPlan", "conv3x3", "conv3x3_plain", "plan_conv3x3", "tf32_round", "tf32_split_weight",
-           "tf32_split_weight_plain"]
+__all__ = ["ConvPlan", "conv3x3", "conv3x3_dw", "conv3x3_dw_plain", "conv3x3_dx", "conv3x3_dx_plain",
+           "conv3x3_plain", "plan_conv3x3", "plan_conv3x3_dw", "plan_conv3x3_dx", "tf32_round", "tf32_split_weight",
+           "tf32_split_weight_plain", "tf32x3_dw_emulated"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"generic": 0, "wgmma": 1, "narrow": 2, "tma": 3, "tma_narrow": 4, "tf32x3": 5, "slice32": 6}
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
-_SPLIT_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_SPLIT_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_DW_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
 SMEM_LIMIT = 232_448  # dynamic shared memory one block may use (227 KB)
@@ -108,6 +131,23 @@ TMA_W = 16  # output columns of a "tma" patch; it has bm / TMA_W rows
 MIN_SLICES = 4  # K slices a split walks at the least, where it can
 PARTIAL_COST = 3e-4  # tf32x3: a split's partials per output element, in 128-row slices (_tf32x3_cost)
 NARROW_WAVES = 4  # tf32x3's 64 x 8 blocks that a split plan keeps per SM
+# the weight gradient's (variant, bm, bn) instantiated in csrc/conv3x3.cu
+# (conv3x3_dw): "tf32x3" rows of (9 Cin) x Cout columns on a ring of
+# DW_STAGES stages, and "generic"'s two tiles; the blocks of each that the
+# card holds at once (one "tf32x3" block per SM, by its shared memory; four
+# of "generic"'s at the least); the waves of them a split plan may take;
+# the 32-pixel slices a split walks at the least
+DW_INSTANCES = (("tf32x3", 128, 128), ("tf32x3", 128, 64), ("tf32x3", 128, 32), ("generic", 64, 64),
+                ("generic", 256, 8))
+DW_STAGES = 4
+DW_RESIDENT = {"tf32x3": SMS, "generic": 4 * SMS}
+DW_WAVES, DW_MIN_SLICES = 2, 8
+# the 32-channel slices a "tf32x3" dx split walks at the most: the tensor
+# cores' f32 accumulation does not round to nearest, and its error grows
+# with the walk (unsplit over the 72 slices of a Cout 256 conv, dx's error
+# reached 1.9e-5 of its largest value on an H100); the splits' partials
+# are summed in f32, rounded to nearest, by the reduction pass
+DX_MAX_SLICES = 36
 
 
 @dataclass(frozen=True)
@@ -316,10 +356,81 @@ def plan_conv3x3(b: int, h: int, w: int, cin: int, cout: int,
     return _make("wgmma", m, cout, k_tiles, 128, 128, 4)
 
 
+@functools.lru_cache(maxsize=1024)
+def plan_conv3x3_dx(b: int, h: int, w: int, cin: int, cout: int) -> ConvPlan:
+    """The plan of ``conv3x3_dx`` for the float32 conv x (b, h, w, cin) ->
+    cout: the forward's plan for dy (b, h, w, cout) -> cin, a "tf32x3" one
+    split further where a split would walk more than DX_MAX_SLICES."""
+    plan = plan_conv3x3(b, h, w, cout, cin, torch.float32)
+    need = -(-9 * cout // F32_SLICE // DX_MAX_SLICES)
+    if plan.variant != "tf32x3" or plan.splits >= need:
+        return plan
+    return dataclasses.replace(plan, splits=need, grid=plan.grid[:2] + (need,))
+
+
+def _dw_splits(tiles: int, k_tiles: int, resident: int) -> int:
+    """K splits of a weight-gradient plan: the count, up to DW_WAVES waves of
+    ``resident`` blocks and down to DW_MIN_SLICES slices a split, whose
+    waves times slices per split is least (the fewest splits among equals:
+    fewer partials)."""
+    most = max(1, min(DW_WAVES * resident // tiles, k_tiles // DW_MIN_SLICES))
+    return min(range(1, most + 1), key=lambda s: (-(-tiles * s // resident) * -(-k_tiles // s), s))
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_conv3x3_dw(b: int, h: int, w: int, cin: int, cout: int, aligned: bool = True) -> ConvPlan:
+    """The plan of ``conv3x3_dw`` for float32 x (b, h, w, cin) and dy (b, h,
+    w, cout): a GEMM of 9 cin rows x cout columns over b h w pixels, walked
+    in 32-pixel slices. "tf32x3" where Cin % 32 == 0 and Cout % 32 == 0,
+    on 128-row tiles 128, 64 or 32 columns wide (the widest that divides
+    Cout); else "generic" on 64 x 64 tiles, or 256 x 8 where Cout <= 8
+    (the output convs). The pixels split over ``_dw_splits``, within
+    DW_WAVES waves of the blocks the card holds at once (DW_RESIDENT). The
+    partials (splits, 9 cin, cout) therefore take at most DW_WAVES x
+    DW_RESIDENT x bm x bn floats. Not ``aligned`` (x off 16 bytes):
+    "generic"."""
+    rows, k_tiles = 9 * cin, -(-b * h * w // F32_SLICE)
+    if cin % F32_SLICE == 0 and cout % 32 == 0 and aligned:
+        variant, bm, bn = "tf32x3", 128, next(n for n in (128, 64, 32) if cout % n == 0)
+        smem = 1024 + DW_STAGES * 2 * bn * 128  # dw_tf32x3_smem_bytes in csrc/conv3x3.cu
+    else:
+        variant, (bm, bn) = "generic", ((256, 8) if cout <= 8 else (64, 64))
+        smem = 0
+    grid = (-(-rows // bm), -(-cout // bn))
+    splits = _dw_splits(grid[0] * grid[1], k_tiles, DW_RESIDENT[variant])
+    return ConvPlan(variant, bm, bn, DW_STAGES if variant == "tf32x3" else 1, splits, grid + (splits,), smem)
+
+
 def conv3x3_plain(x: Tensor, weight: Tensor, bias: Optional[Tensor] = None) -> Tensor:
     """Plain version: ``F.conv2d`` on NCHW-permuted tensors."""
     y = F.conv2d(x.permute(0, 3, 1, 2), weight.permute(3, 2, 0, 1), bias, padding=1)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def conv3x3_dx_weight(weight: Tensor) -> Tensor:
+    """The weight of dx as a conv of dy: w'[kh, kw, co, ci] = w[2 - kh, 2 -
+    kw, ci, co], HWIO (3, 3, Cout, Cin), contiguous."""
+    return weight.flip((0, 1)).transpose(2, 3).contiguous()
+
+
+def conv3x3_dx_plain(dy: Tensor, weight: Tensor) -> Tensor:
+    """Plain version of ``conv3x3_dx``: ``conv3x3_plain`` of dy with w'."""
+    return conv3x3_plain(dy, conv3x3_dx_weight(weight))
+
+
+def _shifted(x: Tensor):
+    """The nine views of the zero-padded x (B, H, W, C) that tap (kh, kw)
+    reads for each output pixel, in HWIO tap order."""
+    h, w = x.shape[1:3]
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    return [xp[:, kh:kh + h, kw:kw + w] for kh in range(3) for kw in range(3)]
+
+
+def conv3x3_dw_plain(x: Tensor, dy: Tensor) -> Tensor:
+    """Plain version of ``conv3x3_dw``: dw (3, 3, Cin, Cout), a sum over the
+    pixels of each of the nine shifted views of padded x times dy."""
+    cin, cout = x.shape[3], dy.shape[3]
+    return torch.stack([torch.einsum("bhwc,bhwo->co", v, dy) for v in _shifted(x)]).reshape(3, 3, cin, cout)
 
 
 def tf32_round(v: Tensor) -> Tensor:
@@ -329,37 +440,68 @@ def tf32_round(v: Tensor) -> Tensor:
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def tf32_split_weight_plain(weight: Tensor) -> Tensor:
-    """Plain version of ``tf32_split_weight``: the float32 HWIO weight (3, 3,
-    Cin, Cout) as the "tf32x3" kernel reads it, (2, Cout, 9 Cin): hi =
-    tf32(w), then lo = tf32(w - hi), K-major, where column 8 kk + c of each
-    32-channel slice holds channel 8 (c % 4) + 2 kk + c // 4 of the slice
-    (the channels a thread's tf32 register fragments take; see
+def tf32_split_rows_plain(mat: Tensor, k: int) -> Tensor:
+    """A row-major (rows, N) float32 operand as the "tf32x3" kernels read it
+    from global memory, (2, N, k): hi = tf32(v), then lo = tf32(v - hi),
+    K-major, rows past ``rows`` (up to k, a multiple of 32) zero, where
+    column 8 kk + c of each 32-row slice holds row 8 (c % 4) + 2 kk + c // 4
+    of the slice (the K index a thread's tf32 register fragments take; see
     csrc/conv3x3.cu)."""
-    cin, cout = weight.shape[2], weight.shape[3]
-    col = torch.arange(F32_SLICE, device=weight.device)
+    n = mat.shape[1]
+    col = torch.arange(F32_SLICE, device=mat.device)
     src = 8 * (col % 8 % 4) + 2 * (col // 8) + col % 8 // 4
-    wt = weight.reshape(9 * cin // F32_SLICE, F32_SLICE, cout)[:, src].permute(2, 0, 1).reshape(cout, 9 * cin)
+    padded = F.pad(mat, (0, 0, 0, k - mat.shape[0]))
+    wt = padded.reshape(k // F32_SLICE, F32_SLICE, n)[:, src].permute(2, 0, 1).reshape(n, k)
     hi = tf32_round(wt)
     return torch.stack([hi, tf32_round(wt - hi)])
 
 
-def tf32_split_weight(weight: Tensor) -> Tensor:
+def tf32_split_weight_plain(weight: Tensor) -> Tensor:
+    """Plain version of ``tf32_split_weight``: the float32 HWIO weight (3, 3,
+    Cin, Cout) seen as (9 Cin, Cout), split as ``tf32_split_rows_plain``
+    lays it out: (2, Cout, 9 Cin)."""
+    cin, cout = weight.shape[2], weight.shape[3]
+    return tf32_split_rows_plain(weight.reshape(9 * cin, cout), 9 * cin)
+
+
+def tf32_split_weight(weight: Tensor, flip: bool = False) -> Tensor:
     """The split weight of ``tf32_split_weight_plain``, made on the card by
     the kernel conv3x3_tf32_split_weight (csrc/conv3x3.cu) for a CUDA
-    tensor; the plain version for a CPU one. Part of a conv3x3 call: it
-    counts no launch of its own."""
+    tensor; the plain version for a CPU one. With ``flip``, the split of
+    dx's weight ``conv3x3_dx_weight(weight)``, which the same kernel reads
+    from ``weight`` itself. Part of a conv3x3 call: it counts no launch of
+    its own."""
     if weight.device.type == "cpu":
-        return tf32_split_weight_plain(weight)
+        return tf32_split_weight_plain(conv3x3_dx_weight(weight) if flip else weight)
     cin, cout = weight.shape[2], weight.shape[3]
-    if weight.dtype != torch.float32 or not weight.is_contiguous() or cin % F32_SLICE:
-        raise ValueError(f"tf32_split_weight: weight {tuple(weight.shape)} {weight.dtype}")
-    split = torch.empty((2, cout, 9 * cin), dtype=torch.float32, device=weight.device)
+    k_ch, n = (cout, cin) if flip else (cin, cout)
+    if weight.dtype != torch.float32 or not weight.is_contiguous() or k_ch % F32_SLICE:
+        raise ValueError(f"tf32_split_weight: weight {tuple(weight.shape)} {weight.dtype}, flip {flip}")
+    split = torch.empty((2, n, 9 * k_ch), dtype=torch.float32, device=weight.device)
     fn = _build.entry("conv3x3", "conv3x3_tf32_split", _SPLIT_ARGTYPES)
-    err = fn(weight.data_ptr(), split.data_ptr(), cin, cout, weight.device.index,
+    err = fn(weight.data_ptr(), split.data_ptr(), cin, cout, int(flip), weight.device.index,
              torch.cuda.current_stream(weight.device).cuda_stream)
     _build.check(err, "conv3x3_tf32_split")
     return split
+
+
+def tf32x3_dw_emulated(x: Tensor, dy: Tensor) -> Tensor:
+    """The "tf32x3" weight gradient's arithmetic in float64: each of x's
+    shifted views and dy split into hi = tf32(v) and lo = tf32(v - hi),
+    and hi.hi + hi.lo + lo.hi summed exactly (the kernel sums in f32)."""
+    cin, cout = x.shape[3], dy.shape[3]
+
+    def split(v):
+        v = v.reshape(-1, v.shape[-1])
+        hi = tf32_round(v)
+        return hi.double(), tf32_round(v - hi).double()
+
+    b_hi, b_lo = split(dy)
+    taps = []
+    for view in _shifted(x):
+        a_hi, a_lo = split(view)
+        taps.append(a_hi.T @ b_hi + a_hi.T @ b_lo + a_lo.T @ b_hi)
+    return torch.stack(taps).reshape(3, 3, cin, cout)
 
 
 # id(weight) -> (a weak reference to it, its version, its split weight)
@@ -398,15 +540,20 @@ def _check(x: Tensor, weight: Tensor, bias: Optional[Tensor]) -> None:
 
 def _launch(x: Tensor, weight: Tensor, bias: Optional[Tensor], plan: ConvPlan) -> Tensor:
     """Runs ``plan`` on CUDA tensors that ``_check`` accepted."""
+    return _run(x, _split_weight(weight) if plan.variant == "tf32x3" else weight, weight.shape[3], bias, plan)
+
+
+def _run(x: Tensor, operand: Tensor, cout: int, bias: Optional[Tensor], plan: ConvPlan,
+         backward: bool = False) -> Tensor:
+    """Runs ``plan`` on x and ``operand``, the weight as the plan's kernel
+    reads it (split for "tf32x3"), to ``cout`` channels."""
     b, h, w, cin = x.shape
-    cout = weight.shape[3]
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     partial = None
     if plan.splits > 1:
         partial = torch.empty((plan.splits, b * h * w, cout), dtype=torch.float32, device=x.device)
-    operand = _split_weight(weight) if plan.variant == "tf32x3" else weight
     fn = _build.entry("conv3x3", "conv3x3_nhwc", _ARGTYPES)
     err = fn(
         x.data_ptr(), operand.data_ptr(), bias.data_ptr() if bias is not None else None,
@@ -415,8 +562,14 @@ def _launch(x: Tensor, weight: Tensor, bias: Optional[Tensor], plan: ConvPlan) -
         plan.stages, plan.splits, plan.grid[0], x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "conv3x3")
-    _build.count_launch("conv3x3", x.shape, cout, plan=plan.variant)
+    _build.count_launch("conv3x3", x.shape, cout, backward=backward, plan=plan.variant)
     return out
+
+
+def _aligned(*tensors: Tensor) -> bool:
+    """Whether every data pointer is 16-byte aligned, as the kernels that
+    copy 16-byte rows need; the generic kernels take any."""
+    return not any(t.data_ptr() % 16 for t in tensors)
 
 
 def _forward(x: Tensor, weight: Tensor, bias: Optional[Tensor]) -> Tensor:
@@ -427,11 +580,63 @@ def _forward(x: Tensor, weight: Tensor, bias: Optional[Tensor]) -> Tensor:
         raise ValueError(f"conv3x3: no kernel for device {x.device}")
     _check(x, weight, bias)
     b, h, w, _ = x.shape
-    if (x.data_ptr() | weight.data_ptr()) % 16:  # the others copy 16-byte rows
-        plan = _generic(b * h * w, weight.shape[3])
-    else:
-        plan = plan_conv3x3(*x.shape, weight.shape[3], x.dtype)
+    cout = weight.shape[3]
+    plan = plan_conv3x3(*x.shape, cout, x.dtype) if _aligned(x, weight) else _generic(b * h * w, cout)
     return _launch(x, weight, bias, plan)
+
+
+def conv3x3_dx(dy: Tensor, weight: Tensor) -> Tensor:
+    """dx (B, H, W, Cin) of y = conv3x3(x, weight) from dy (B, H, W, Cout),
+    float32: on the card one ``conv3x3`` launch (counted as a backward
+    launch) of dy with the flipped, transposed weight, planned as a conv
+    of Cout -> Cin channels; ``conv3x3_dx_plain`` on the CPU."""
+    if dy.device.type == "cpu":
+        return conv3x3_dx_plain(dy, weight)
+    cin = weight.shape[2]
+    if dy.ndim != 4 or weight.shape != (3, 3, cin, dy.shape[3]) or {dy.dtype, weight.dtype} != {torch.float32} \
+            or weight.device != dy.device or not (dy.is_contiguous() and weight.is_contiguous()):
+        raise ValueError(f"conv3x3_dx: dy {tuple(dy.shape)} {dy.dtype}, weight {tuple(weight.shape)} {weight.dtype}")
+    b, h, w, cout = dy.shape
+    plan = plan_conv3x3_dx(b, h, w, cin, cout) if _aligned(dy) else _generic(b * h * w, cin)
+    operand = tf32_split_weight(weight, flip=True) if plan.variant == "tf32x3" else conv3x3_dx_weight(weight)
+    return _run(dy, operand, cin, None, plan, backward=True)
+
+
+def conv3x3_dw(x: Tensor, dy: Tensor) -> Tensor:
+    """dw (3, 3, Cin, Cout) of y = conv3x3(x, weight) from x (B, H, W, Cin)
+    and dy (B, H, W, Cout), float32: on the card the kernel conv3x3_dw
+    (csrc/conv3x3.cu) on ``plan_conv3x3_dw``'s plan, one ``conv3x3_dw``
+    launch counted as a backward launch (its split pass over dy and its
+    split-K reduction part of it); ``conv3x3_dw_plain`` on the CPU."""
+    if x.device.type == "cpu":
+        return conv3x3_dw_plain(x, dy)
+    if x.ndim != 4 or dy.ndim != 4 or x.shape[:3] != dy.shape[:3] or {x.dtype, dy.dtype} != {torch.float32} \
+            or x.device != dy.device or not (x.is_contiguous() and dy.is_contiguous()):
+        raise ValueError(f"conv3x3_dw: x {tuple(x.shape)} {x.dtype}, dy {tuple(dy.shape)} {dy.dtype}")
+    b, h, w, cin = x.shape
+    cout = dy.shape[3]
+    out = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
+    if x.numel() == 0 or out.numel() == 0:
+        return out.zero_()
+    return _launch_dw(x, dy, out, plan_conv3x3_dw(b, h, w, cin, cout, _aligned(x)))
+
+
+def _launch_dw(x: Tensor, dy: Tensor, out: Tensor, plan: ConvPlan) -> Tensor:
+    """Runs the weight-gradient ``plan`` into ``out`` on CUDA tensors that
+    ``conv3x3_dw`` accepted."""
+    b, h, w, cin = x.shape
+    cout = dy.shape[3]
+    kp = -(-b * h * w // F32_SLICE) * F32_SLICE
+    dyt = torch.empty((2, cout, kp), dtype=torch.float32, device=x.device) if plan.variant == "tf32x3" else None
+    partial = torch.empty((plan.splits, 9 * cin, cout), dtype=torch.float32, device=x.device) \
+        if plan.splits > 1 else None
+    fn = _build.entry("conv3x3", "conv3x3_dw", _DW_ARGTYPES)
+    err = fn(x.data_ptr(), dy.data_ptr(), dyt.data_ptr() if dyt is not None else None, out.data_ptr(),
+             partial.data_ptr() if partial is not None else None, b, h, w, cin, cout, _VARIANTS[plan.variant],
+             plan.bn, plan.splits, kp, x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "conv3x3_dw")
+    _build.count_launch("conv3x3_dw", x.shape, cout, backward=True, plan=plan.variant)
+    return out
 
 
 @torch.library.custom_op("diffsep::conv3x3", mutates_args=())
@@ -450,12 +655,17 @@ def _setup_context(ctx, inputs, output) -> None:
 
 
 def _backward(ctx, grad: Tensor):
-    """The framework conv's backward: dx, dw and db where each is needed."""
+    """dx, dw and db where each is needed: the hand kernels for float32 on
+    the card, the framework conv's backward otherwise (see the module
+    docstring)."""
     x, weight = ctx.saved_tensors
     need_x, need_w, need_b = ctx.needs_input_grad
     grad = grad.contiguous()
     dx = dw = db = None
-    if need_x or need_w:
+    if x.device.type == "cuda" and x.dtype == torch.float32:
+        dx = conv3x3_dx(grad, weight) if need_x else None
+        dw = conv3x3_dw(x, grad) if need_w else None
+    elif need_x or need_w:
         # the weight as OHWI data, which is OIHW in channels_last
         w_oihw = weight.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
         dx, dw, _ = torch.ops.aten.convolution_backward(

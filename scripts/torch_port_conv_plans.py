@@ -6,6 +6,7 @@ shapes.
 
     python3 scripts/torch_port_conv_plans.py [--dtype float32] [--report PATH]
     python3 scripts/torch_port_conv_plans.py --shapes demo [--report PATH]
+    python3 scripts/torch_port_conv_plans.py --backward [--dtype float32|bfloat16] [--report PATH]
 
 The shapes come from one flagship score evaluation (chip_smoke.SERVE_BATCH
 mixtures of chip_smoke.SERVE_SECONDS s), as in chip_smoke.py. For each shape
@@ -36,6 +37,23 @@ cuDNN (`F.conv2d` on the channels-last views, TF32 off), beside its byte
 bound and a copy of its input (`clone`: the rate HBM gives a plain
 stream); each route's output is held to the exact sum (a float64 conv of
 the same bf16 inputs: rms and largest error).
+
+With --backward the shapes are the flagship's at the training batch of 6
+(the f32 + remat recipe's micro-step), each with its launches in one score
+evaluation (a micro-step's backward runs each conv's once; dx skips the
+stem, whose input takes no gradient). In float32 each runs the port's dx
+(``conv3x3_dx``: the forward kernel on the flipped weight) and dw
+(``conv3x3_dw``), each held to its plain version (of max |plain|), and
+cuDNN's ``convolution_backward`` for dx alone and dw alone: with
+``cudnn.deterministic`` on (the recipe's ``trainer.deterministic=true``)
+with TF32 off and on (torch's default for a user's run), and with it off,
+TF32 off; beside each one's bound (chip_smoke.conv_bound_ms: that of
+its plan, and in float32 also all at the FFMA peak and all as three TF32
+products). The inputs, the cuDNN calls and the bounds are
+chip_smoke.conv_bwd_case's, as phase 12 holds them. In bfloat16 each runs the hand forward
+kernel on dy with the flipped weight (the dx a bf16 hand backward would
+take; the port's bf16 backward is cuDNN's) against cuDNN's bf16 dx and
+dw. Every time is also summed over the micro-step's launches.
 """
 from __future__ import annotations
 
@@ -53,7 +71,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (FS, HBM_BYTES_PER_S, PEAK_FLOPS, SERVE_BATCH, SERVE_SECONDS,  # noqa: E402
-                        sleep_cycles_per_ms, time_ms)
+                        conv_bwd_case, sleep_cycles_per_ms, time_ms)
 
 
 F32_EXTRA = [((2, 16, 20, 768), 256), ((2, 32, 40, 768), 256)]  # set C's cat inputs
@@ -148,6 +166,89 @@ def host_us(fn, cycles_per_ms, calls=50):
     return statistics.median(times)
 
 
+BACKWARD_BATCH = 6  # the recipe's batch: chip_smoke.TRAIN_BATCH
+
+
+def conv_launches(model, batch, n, dev):
+    """{(shape, cout): launches} of one score evaluation of ``model``."""
+    import torch
+
+    from diffsep_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(0)
+    mix = torch.from_numpy((0.1 * rng.standard_normal((batch, 1, n))).astype(np.float32)).to(dev)
+    xt = torch.from_numpy((0.1 * rng.standard_normal((batch, 2, n))).astype(np.float32)).to(dev)
+    _build.reset_counts()
+    with torch.no_grad():
+        model.score_fn(xt, torch.full((batch,), 0.5, device=dev), mix)
+    return {(s, c): k for (name, s, c), k in _build.launch_shapes.items() if name == "conv3x3"}
+
+
+def backward_main(args, card, dev) -> int:
+    """--backward: see the module docstring."""
+    import torch
+
+    from diffsep_tpu_torch.model import DiffSepModel
+    from diffsep_tpu_torch.ops import conv3x3 as conv
+
+    dtype = getattr(torch, args.dtype)
+    f32 = dtype == torch.float32
+    model = DiffSepModel({"score_model": {"backbone_args": {"dtype": args.dtype}}}, device=dev, seed=0)
+    launches = conv_launches(model, BACKWARD_BATCH, SERVE_SECONDS * FS, dev)
+    stem = min(launches, key=lambda sc: sc[0][3])  # Cin 6: no dx
+    del model
+    torch.cuda.empty_cache()
+    cycles_per_ms = sleep_cycles_per_ms()
+    cudnn_cases = ([("deterministic, TF32 off", True, False), ("deterministic, TF32 on", True, True),
+                    ("TF32 off", False, False)] if f32 else [("bf16", False, False)])
+    rows, totals = [], {}
+    for (shape, cout), n in sorted(launches.items()):
+        case = conv_bwd_case(shape, cout, args.dtype, dev, 0)
+        x, wt, dy = case.x, case.wt, case.dy
+        n_dx = 0 if (shape, cout) == stem else n
+        row = dict(shape=list(shape), cout=cout, dtype=args.dtype, launches_dx=n_dx, launches_dw=n,
+                   plan_dx=case.plans["dx"].variant)
+        for part, bound in case.bounds.items():
+            row.update({f"{key[:-3]}_{part}_ms": bound[key] for key in ("bound_ms", "bound_ffma_ms", "bound_3xtf32_ms")
+                        if key in bound})
+        if f32:
+            dx_fn, dw_fn = (lambda: conv.conv3x3_dx(dy, wt)), (lambda: conv.conv3x3_dw(x, dy))
+            want_dx, want_dw = conv.conv3x3_dx_plain(dy, wt), conv.conv3x3_dw_plain(x, dy)
+            row.update(plan_dw=case.plans["dw"].variant,
+                       err_dw=((dw_fn() - want_dw).abs().max() / want_dw.abs().max()).item())
+        else:
+            wflip = conv.conv3x3_dx_weight(wt)
+            dx_fn = lambda: conv.conv3x3(dy, wflip)  # noqa: E731
+            want_dx = conv.conv3x3_plain(dy, wflip)
+        row["err_dx"] = ((dx_fn().float() - want_dx.float()).abs().max() / want_dx.float().abs().max()).item()
+        with torch.no_grad():
+            row["hand_dx_ms"] = time_ms(dx_fn, cycles_per_ms)
+            if f32:
+                row["hand_dw_ms"] = time_ms(dw_fn, cycles_per_ms)
+        for label, det, tf32 in cudnn_cases:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = det, tf32
+            try:
+                for part in ("dx", "dw"):
+                    row[f"cudnn {label} {part}_ms"] = time_ms(lambda part=part: case.library(part), cycles_per_ms)
+            finally:
+                torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = False, False
+        rows.append(row)
+        for key, v in row.items():
+            if key.endswith("_ms"):
+                per = row["launches_dx"] if "dx" in key else row["launches_dw"]
+                totals[key] = totals.get(key, 0.0) + v * per
+        print(f"{'x'.join(map(str, shape))}->{cout} x{n} ({n_dx} dx): "
+              + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in row.items()
+                          if k not in ("shape", "cout", "dtype", "launches_dx", "launches_dw")), flush=True)
+    print(f"per micro-step at batch {BACKWARD_BATCH} ({sum(r['launches_dx'] for r in rows)} dx, "
+          f"{sum(r['launches_dw'] for r in rows)} dw; {card}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in totals.items()), flush=True)
+    if args.report is not None:
+        args.report.parent.mkdir(parents=True, exist_ok=True)
+        args.report.write_text(json.dumps(dict(card=card, rows=rows, per_micro_step=totals), indent=1))
+    return 0
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -160,9 +261,13 @@ def main() -> int:
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     ap.add_argument("--shapes", choices=("flagship", "demo"), default="flagship",
                     help="the flagship's conv shapes, or the learning demo's at batch 16 and 8 (bf16)")
+    ap.add_argument("--backward", action="store_true",
+                    help="time the conv's backward (dx, dw) at the flagship's shapes at batch 6 against cuDNN's")
     args = ap.parse_args()
     if args.shapes == "demo" and args.dtype != "bfloat16":
         ap.error("--shapes demo times bf16")
+    if args.backward and args.shapes == "demo":
+        ap.error("--backward times the flagship's shapes")
     if not torch.cuda.is_available():
         print("torch_port_conv_plans: no CUDA device", file=sys.stderr)
         return 2
@@ -172,6 +277,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
     dev = torch.device("cuda")
+    if args.backward:
+        return backward_main(args, card, dev)
     if args.shapes == "demo":  # the shapes of the 32-channel-slice plans
         shapes = [(sh, c) for sh, c in demo_shapes(dev) if sh[3] % conv.C32 == 0 and sh[3] % conv.SLICE]
     else:

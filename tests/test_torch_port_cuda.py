@@ -249,6 +249,100 @@ def test_conv3x3_unaligned_f32_input_takes_the_generic_kernel(dev):
     _close(conv3x3.conv3x3(shifted, k, bias), conv3x3.conv3x3_plain(x, k, bias), torch.float32)
 
 
+# The float32 conv's backward on the card: dx on the forward's kernels
+# (the flipped, transposed weight), dw on conv3x3_dw. Shapes: batch 2 on 4 x
+# 5, 7 x 6 and 16 x 20 at (Cin, Cout) = (6, 32) (the stem's generic dw),
+# (32, 64), (64, 32), (96, 4) (a generic dx of Cin 4 and a 256 x 8 generic
+# dw) and (128, 128); every conv shape of the f32 + remat micro-step (the
+# flagship at batch 6); and ragged ones: odd H and W with Cin = 160, Cout =
+# 20, the output conv past both edges, Cout = 96 on 32-wide tiles.
+# Tolerance 2e-5 of max |plain| (cuDNN and cuBLAS with TF32 off): both sum
+# the same f32 terms in other orders, dw over up to 491520 pixels.
+BWD_SHAPES = ([(2, h, w, ci, co) for h, w in ((4, 5), (7, 6), (16, 20))
+               for ci, co in ((6, 32), (32, 64), (64, 32), (96, 4), (128, 128))]
+              + [(6, *s[1:]) for s in F32_TRUNK[:-2] + F32_OUTPUT] + [(6, 256, 320, 6, 128)]
+              + [(3, 17, 19, 160, 128), (1, 9, 7, 64, 20), (1, 130, 131, 128, 6), (2, 33, 41, 32, 96)])
+BWD_TOL = 2e-5
+
+
+def _close_rel(got, want, tol=BWD_TOL):
+    err = (got - want).abs().max().item()
+    assert got.shape == want.shape and err <= tol * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_conv3x3_dx_and_dw_match_plain(dev, shape):
+    x, k, _ = _conv_inputs(dev, torch.float32, shape)
+    g = torch.randn((*shape[:3], shape[4]), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    n0, b0 = _build.backward_counts["conv3x3"], _build.backward_counts["conv3x3_dw"]
+    dx, dw = conv3x3.conv3x3_dx(g, k), conv3x3.conv3x3_dw(x, g)
+    torch.cuda.synchronize()
+    assert (_build.backward_counts["conv3x3"], _build.backward_counts["conv3x3_dw"]) == (n0 + 1, b0 + 1)
+    _close_rel(dx, conv3x3.conv3x3_dx_plain(g, k))
+    _close_rel(dw, conv3x3.conv3x3_dw_plain(x, g))
+
+
+@pytest.mark.parametrize("shape", [(6, 256, 320, 128, 128), (6, 64, 80, 512, 256), (2, 16, 20, 6, 32),
+                                   (6, 128, 160, 128, 6), (2, 33, 41, 32, 96)])
+def test_conv3x3_dw_is_bitwise_deterministic(dev, shape):
+    x, _, _ = _conv_inputs(dev, torch.float32, shape)
+    g = torch.randn((*shape[:3], shape[4]), device=dev)
+    assert conv3x3.plan_conv3x3_dw(*shape).splits > 1
+    first, second = conv3x3.conv3x3_dw(x, g), conv3x3.conv3x3_dw(x, g)
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", [(3, 3, 64, 32), (3, 3, 128, 192), (3, 3, 256, 768), (3, 3, 6, 64)])
+def test_tf32_split_of_the_dx_weight_equals_plain(dev, shape):
+    k = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    got = conv3x3.tf32_split_weight(k, flip=True)
+    want = conv3x3.tf32_split_weight_plain(conv3x3.conv3x3_dx_weight(k))
+    assert got.shape == want.shape and torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_conv3x3_backward_of_unaligned_tensors_takes_the_generic_kernels(dev):
+    """x or dy 4 bytes off the 16-byte alignment: dw and dx go to the
+    generic kernels and still match."""
+    x, k, _ = _conv_inputs(dev, torch.float32, (1, 16, 20, 128, 128))
+    g = torch.randn((1, 16, 20, 128), device=dev)
+
+    def shifted(t):
+        out = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape)
+        return out.copy_(t)
+
+    xs, gs = shifted(x), shifted(g)
+    assert xs.data_ptr() % 16 and gs.data_ptr() % 16
+    assert conv3x3.plan_conv3x3_dw(1, 16, 20, 128, 128, False).variant == "generic"
+    _close_rel(conv3x3.conv3x3_dw(xs, g), conv3x3.conv3x3_dw_plain(x, g))
+    _close_rel(conv3x3.conv3x3_dx(gs, k), conv3x3.conv3x3_dx_plain(g, k))
+
+
+def test_f32_score_model_gradients_on_the_hand_backward_match_plain(dev):
+    """A whole float32 NCSN++ score model (nf 32, the flagship's blocks):
+    its parameter gradients with the hand dx and dw against the same model
+    on the plain versions (cuDNN's backward), within 1e-4 of their norm; dx
+    skips the stem (its input takes no gradient)."""
+    from diffsep_tpu_torch.model import DiffSepModel
+    from diffsep_tpu_torch.ops.plain import plain_kernels
+
+    cfg = {"score_model": {"backbone_args": {"nf": 32, "ch_mult": (1, 1, 2, 2), "num_res_blocks": 1,
+                                             "dtype": "float32"}}}
+    _, model = _randomized_pair(lambda d: DiffSepModel(cfg, device=d).score_model, dev, 6)
+    g = torch.Generator().manual_seed(7)
+    inputs = (0.3 * torch.randn((2, 2, 8000), generator=g), torch.tensor([0.4, 0.9]),
+              0.3 * torch.randn((2, 1, 8000), generator=g))
+    w = torch.randn((2, 2, 8000), generator=g)
+    _build.reset_counts()
+    _, got = _forward_and_grads(model, inputs, w, dev)
+    torch.cuda.synchronize()
+    forward = _build.launch_counts["conv3x3"] - _build.backward_counts["conv3x3"]
+    assert _build.backward_counts["conv3x3_dw"] == forward and 0 < _build.backward_counts["conv3x3"] < forward
+    with plain_kernels():
+        _, want = _forward_and_grads(model, inputs, w, dev)
+    norm = sum(float(v.double().square().sum()) for v in want.values()) ** 0.5
+    assert max(float((got[k] - want[k]).abs().max()) for k in want) <= 1e-4 * norm
+
+
 def _fir_case(dev, dtype, shape, up, down_taps=TAPS_DOWN):
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -360,8 +454,9 @@ def test_small_model_on_the_card_matches_the_cpu(dev):
 # The training path's shapes: one micro-step of the flagship recipe (NCSN++
 # nf=128, bf16, batch 6 x 5 s), its loss's forward and backward on the card.
 # Gradient tolerances are those of the outputs above, of max(1, |plain|):
-# both sides sum the same terms in float32 (the conv's backward is cuDNN's
-# on both routes) and round once to the working type.
+# both sides sum the same terms in float32 (in bf16 the conv's backward is
+# cuDNN's on both routes; in float32 the kernel route's is the hand dx and
+# dw) and round once to the working type.
 TRAIN_BATCH = 6
 
 
@@ -417,13 +512,21 @@ def _grads(fn, inputs, g):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv3x3_gradients_match_plain_at_training_shapes(training_launches, dev, dtype):
+    """bfloat16: one launch, the backward cuDNN's on both routes; float32:
+    the forward and dx on conv3x3, dw on conv3x3_dw, held to their plain
+    versions (cuDNN's own f32 weight gradient strays by about 1e-4 of its
+    largest value over the 491520 pixels of the top level at batch 6,
+    where conv3x3_dw_plain and the kernel agree within 2e-6)."""
     for (b, h, w, ci), co in _shapes(training_launches[0], "conv3x3"):
         x, k, bias = _conv_inputs(dev, dtype, (b, h, w, ci, co))
         g = torch.randn((b, h, w, co), device=dev).to(dtype)
-        n0 = _build.launch_counts["conv3x3"]
+        n0, d0 = _build.launch_counts["conv3x3"], _build.launch_counts["conv3x3_dw"]
         got = _grads(conv3x3.conv3x3, (x, k, bias), g)
-        assert _build.launch_counts["conv3x3"] == n0 + 1
+        f32 = int(dtype == torch.float32)
+        assert (_build.launch_counts["conv3x3"], _build.launch_counts["conv3x3_dw"]) == (n0 + 1 + f32, d0 + f32)
         want = _grads(conv3x3.conv3x3_plain, (x, k, bias), g)
+        if f32:
+            want = (want[0], conv3x3.conv3x3_dx_plain(g, k), conv3x3.conv3x3_dw_plain(x, g), want[3])
         for a, b_ in zip(got, want):
             assert a.shape == b_.shape and a.dtype == b_.dtype
             _close(a, b_, dtype)
