@@ -732,19 +732,37 @@ def check_conv_bwd(shape, cout, dev, seed, cycles_per_ms):
 BWD_SUM_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ffma_ms", "bound_3xtf32_ms", "ops_ms", "bytes_ms")
 
 
+def bwd_group(row):
+    """The group a backward row is summed in beside its plan: the plan's
+    variant, a "window" dw apart for the output convs (Cout <= 8) and the
+    stem (Cin <= 8)."""
+    variant = row["plan"]["variant"]
+    if variant != "window":
+        return variant
+    return "window, Cout <= 8" if row["cout"] <= row["shape"][3] else "window, Cin <= 8"
+
+
 def bwd_sums(rows):
     """The backward rows of ``check_conv_bwd`` summed over their launches per
     micro-step, for dx and for dw: launches, hand ms by plan, plain, cuDNN,
     the bound by plan (``bound_ms``, ``bound_by``) and both float32
-    figures."""
+    figures; and by group (``bwd_group``) the launches, hand ms, cuDNN ms
+    and bound ms, so that each plan is held to cuDNN on its own shapes."""
     out = {}
     for part in ("dx", "dw"):
         mine = [r for r in rows if r["part"] == part]
         by_plan = collections.defaultdict(float)
+        by_group = collections.defaultdict(lambda: dict(launches=0, ms=0.0, library_ms=0.0, bound_ms=0.0))
         for r in mine:
-            by_plan[r["plan"]["variant"]] += r["ms"] * r["launches_per_micro_step"]
+            n = r["launches_per_micro_step"]
+            by_plan[r["plan"]["variant"]] += r["ms"] * n
+            group = by_group[bwd_group(r)]
+            group["launches"] += n
+            for key in ("ms", "library_ms", "bound_ms"):
+                group[key] += r[key] * n
         v = {key: sum(r[key] * r["launches_per_micro_step"] for r in mine) for key in BWD_SUM_KEYS}
         out[part] = dict(launches=sum(r["launches_per_micro_step"] for r in mine), ms_by_plan=dict(by_plan), **v,
+                         by_group={k: dict(g) for k, g in by_group.items()},
                          bound_by="operations" if v["ops_ms"] >= v["bytes_ms"] else "bytes",
                          max_rel_err=max(r["rel_err"] for r in mine))
     return out
@@ -2945,12 +2963,14 @@ def options_phase(dev, card, cycles_per_ms, tmp, data, checked):
     out["f32_remat_backward_per_micro_step"] = bsum = bwd_sums(bwd_rows)
     for part, v in bsum.items():
         plans = ", ".join(f"{k} {x:.3f}" for k, x in sorted(v["ms_by_plan"].items()))
+        groups = "; ".join(f"{k} x{g['launches']}: hand {g['ms']:.3f}, cuDNN {g['library_ms']:.3f}, bound "
+                           f"{g['bound_ms']:.3f}" for k, g in sorted(v["by_group"].items()))
         log(f"[options] f32 + remat micro-step at {TRAIN_BATCH} x {SERVE_SECONDS} s, {part} ({v['launches']} "
             f"launches): hand {v['ms']:.3f} ms ({plans}), "
             f"plain {v['plain_ms']:.3f}, cuDNN deterministic {v['library_ms']:.3f}, bound {v['bound_ms']:.3f} by "
             f"plan ({v['bound_by']}; {v['bound_ffma_ms']:.3f} all at the FFMA peak, {v['bound_3xtf32_ms']:.3f} all as "
             f"3 TF32 products); largest error {v['max_rel_err']:.3g} of "
-            f"max |plain| ({card})")
+            f"max |plain|; by group: {groups} ({card})")
     assert (bsum["dx"]["launches"], bsum["dw"]["launches"]) == (REMAT_PER_STEP["conv3x3"][1],
                                                                 REMAT_PER_STEP["conv3x3_dw"][1]), bsum
     assert all(r["ok"] for r in bwd_rows), [r for r in bwd_rows if not r["ok"]]
@@ -4504,7 +4524,7 @@ def main() -> int:
         bound_ms=dw["bound_ms"], bound_by=dw["bound_by"],
         library_ms=dw["library_ms"], per="f32 + remat micro-step", max_rel_err=dw["max_rel_err"],
         ms_by_plan=dw["ms_by_plan"], bound_ffma_ms=dw["bound_ffma_ms"], bound_3xtf32_ms=dw["bound_3xtf32_ms"],
-        launches_per_f32_remat_micro_step=dw["launches"],
+        by_group=dw["by_group"], launches_per_f32_remat_micro_step=dw["launches"],
         launches_per_option_set_micro_step=set_backward("conv3x3_dw"),
     ))
     report["summary"] = summary

@@ -84,8 +84,9 @@
 // The float32 backward. dx is this file's forward conv of dy with the
 // weight flipped and transposed (conv3x3_tf32_split_weight makes its split
 // operand with `flip`). dw, the weight gradient, is a kernel of its own
-// (conv3x3_dw_tf32x3_kernel, conv3x3_dw_f32_kernel; entry conv3x3_dw): see
-// its note below.
+// (conv3x3_dw_tf32x3_kernel, conv3x3_dw_window_kernel for a side of 8
+// channels or fewer, conv3x3_dw_f32_kernel; entry conv3x3_dw): see its note
+// below.
 //
 // "generic" (f32 outside "tf32x3": Cin = 6, Cout = 6, other channel counts;
 // bf16 with Cin not a multiple of 32, as the stem's Cin = 6, or with Cout
@@ -1167,47 +1168,72 @@ conv3x3_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ wsp
 //   A[(tap, ci)][p] = x at pixel p shifted by the tap, B[p][co] = dy[p][co].
 // What bounds it: operations, 2 M N K, as the forward's (145 GFLOP against
 // 0.5 GB of x and dy at the flagship's top level, 128 -> 128 channels at
-// batch 6); next, bytes (x, dy and the split copy of dy below). The K walk
-// splits over the SMs (grid z), each split writing an f32 partial of its
-// tile; conv3x3_dw_splitk_reduce sums the partials in order, so the result is
-// bitwise deterministic (no atomics).
+// batch 6); next, the bytes that every block takes from L2 (its A rows and
+// dy's split copy below). The K walk splits over the SMs (grid z), each
+// split writing an f32 partial of its tile; conv3x3_dw_splitk_reduce sums
+// the partials in order, so the result is bitwise deterministic (no
+// atomics).
 //
 // "tf32x3" (Cin % 32 == 0, Cout % 32 == 0): the forward's split-operand
 // TF32 on wgmma, three products per k8 step. tf32 wgmma reads B K-major
 // only, and dy is pixel-major, so a pass of its own (conv3x3_dw_split_dy,
 // once per call) writes dy transposed, split into hi and lo and permuted per
 // 32-pixel slice as the forward's weight, zero past the last pixel: the main
-// loop then streams B through the forward's cp.async ring unchanged, and the
-// pass costs 12 bytes per dy element (read once, hi and lo written), against
-// a transpose and split of every B slice in each of the 9 Cin / BM row
-// tiles that read it. A comes from registers: each thread's two rows are
+// loop then streams B through the forward's cp.async ring, and the pass
+// costs 12 bytes per dy element (read once, hi and lo written), against a
+// transpose and split of every B slice in each of the 9 Cin / BM row tiles
+// that read it. A comes from registers: each thread's two rows are
 // channels ci and ci + 1 of one tap, and its eight pixels of a slice are
 // 8 t .. 8 t + 7 (t = lane % 4), the columns the permutation gives its
 // fragments; it loads them as float2 straight from x (L1 and L2 serve the
 // taps' overlapping reads; no halo to stage), predicated to zero at the
 // SAME padding and past the last pixel, a slice ahead, and splits them in
-// registers as the forward splits its A rows. The tensor cores' f32
-// accumulation does not round to nearest, so over a split's walk of up to
-// ~2 x 10^4 wgmma its error would grow with their count, past float32's
-// accuracy: each slice's 12 wgmma start from zero (scale-d 0) and the
-// thread adds their sum into f32 registers of its own, rounded to nearest,
-// once the group has completed.
+// registers as the forward splits its A rows.
+//
+// The tensor cores' f32 accumulation does not round to nearest, so over a
+// split's walk of up to ~2 x 10^4 wgmma its error would grow with their
+// count, past float32's accuracy: the sum of each DW_CHAIN slices' wgmma
+// (a chain of 12 DW_CHAIN on the accumulators, the first from zero) is
+// added into f32 registers of the thread's own, rounded to nearest, once it
+// has completed. Within a chain the slices' groups follow each other
+// without a wait: a thread splits slice i into one of two fragment sets
+// while slice i - 1's group, which reads the other, runs (its wait for
+// slice i - 2's group frees the set), so that the loads, the split and the
+// next slice's addresses run under the products. The chain is unrolled,
+// its fragment sets and its waits fixed in the code: a wait or a fragment
+// set chosen at run time among the wgmma makes ptxas serialize them (C7515,
+// C7517). So a split walks whole chains: dy's split copy is padded with
+// zeros to a multiple of 32 DW_CHAIN pixels.
+//
+// What holds it back (timed on the H100 in variants; PERF.md): the
+// bytes every block takes from L2 per slice, 16 KB of A and 32 KB of B's
+// hi and lo for 3 MFLOP. Without wgmma the loop's loads and splits alone
+// took 45% of its time, without loads its products 66%, and the two barely
+// overlap. B unsplit, split by the block in shared memory, cost more
+// shared-memory bandwidth than it saved from L2; A in shared memory (both
+// operands of wgmma there) too, as tf32 wgmma reads 6 KB of it per 64 x 128
+// x 8; the two warpgroups taking turns on named barriers, with a TMA
+// producer, ran slower (a thread issuing TMA among the wgmma: ptxas
+// serialized them, C7518; a producer warp of its own: 9 warps, 168
+// registers a thread, spills).
+constexpr int DW_CHAIN = 4;  // slices whose wgmma chain a thread adds into its f32 sum at once
 template <int NWG, int BN, int STAGES>
 __global__ void __launch_bounds__(NWG * 128, 1)
 conv3x3_dw_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ dyt, float* __restrict__ out,
                          float* __restrict__ partial, Shape s, int kp, int splits) {
-  static_assert(STAGES >= 3, "loads run STAGES - 2 slices ahead of the wgmma groups in flight");
+  static_assert(STAGES >= 4, "B loads run STAGES - 3 slices ahead of the wgmma groups in flight");
   static_assert(BN == 32 || BN == 64 || BN == 128, "tile width");
-  constexpr int THREADS = NWG * 128, BM = NWG * 64;
+  static_assert(DW_CHAIN % 2 == 0, "the fragment sets alternate");
+  constexpr int THREADS = NWG * 128, BM = NWG * 64, AHEAD = STAGES - 3;
   constexpr int B_BYTES = BN * 128, STAGE_BYTES = 2 * B_BYTES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t ring = (hopper::smem_addr(smem_raw) + 1023u) & ~1023u;
 
   const int tid = threadIdx.x, lane = tid & 31, t = lane & 3;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int k_tiles = kp / F32_SLICE;
-  const int kt0 = (int)((long long)blockIdx.z * k_tiles / splits);
-  const int nk = (int)((long long)(blockIdx.z + 1) * k_tiles / splits) - kt0;
+  const int chains = kp / (DW_CHAIN * F32_SLICE);
+  const int kt0 = DW_CHAIN * (int)((long long)blockIdx.z * chains / splits);
+  const int nk = DW_CHAIN * (int)((long long)(blockIdx.z + 1) * chains / splits) - kt0;  // whole chains, >= 1
   const size_t half = (size_t)s.Cout * kp;  // lo's offset in dyt
   Shape o = s;  // the output (9 Cin, Cout), as store_tile indexes it
   o.M = 9 * s.Cin;
@@ -1250,28 +1276,26 @@ conv3x3_dw_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ 
   };
 
 #pragma unroll
-  for (int p = 0; p < STAGES - 2; ++p) {
+  for (int p = 0; p < AHEAD; ++p) {
     if (p < nk) load_b(p, kt0 + p);
     hopper::cp_async_commit();
   }
   float v[16];
-  if (nk > 0) load_a(v, kt0);
-  float acc[BN / 2], sum[BN / 2];  // the slice's wgmma group's sum; the walk's
+  load_a(v, kt0);
+  float acc[BN / 2], sum[BN / 2];  // the chain's wgmma sum; the walk's
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = sum[i] = 0.f;
-  uint32_t hi[4][4], lo[4][4];  // this slice's A fragments: register r of k8 step kk
-  for (int i = 0; i < nk; ++i) {
-    // B of slice i has landed for this thread; the barrier makes it whole,
-    // and (each warpgroup having waited for its wgmma of slice i - 2 in
-    // the previous iteration) frees the buffer refilled below.
-    hopper::cp_async_wait<STAGES - 3>();
+  uint32_t hi0[4][4], lo0[4][4], hi1[4][4], lo1[4][4];  // A fragments of the even and odd slices
+  // Slice i (of this split's walk) with fragment set (hi, lo), register r of
+  // k8 step kk; `chain`: onto the accumulators, else from zero.
+  auto step = [&](int i, uint32_t (&hi)[4][4], uint32_t (&lo)[4][4], bool chain) {
+    // Slice i's B has landed for this thread; the barrier makes it whole,
+    // and (each thread having waited for slice i - 3's group in the last
+    // step) frees the buffer refilled below.
+    hopper::cp_async_wait<AHEAD - 1>();
     hopper::fence_proxy_async();
     __syncthreads();
-    const uint32_t st = ring + (i % STAGES) * STAGE_BYTES;
-    hopper::wgmma_wait<0>();  // slice i - 1's group has completed and read the fragments
-    hopper::fence_regs(acc);
-#pragma unroll
-    for (int j = 0; j < BN / 2; ++j) sum[j] += acc[j];
+    hopper::wgmma_wait<1>();  // slice i - 2's group has read (hi, lo)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -1280,25 +1304,28 @@ conv3x3_dw_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ 
         hi[kk][r] = hopper::to_tf32(a);
         lo[kk][r] = hopper::to_tf32(a - __uint_as_float(hi[kk][r]));
       }
-    if (i + 1 < nk) load_a(v, kt0 + i + 1);  // in flight under this slice's products
-    hopper::fence_regs(acc);
+    if (i + 1 < nk) load_a(v, kt0 + i + 1);  // in flight under the products
     hopper::wgmma_fence();
-    const uint32_t b_hi = st, b_lo = st + B_BYTES;
+    const uint32_t b_hi = ring + (i % STAGES) * STAGE_BYTES, b_lo = b_hi + B_BYTES;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      hopper::wgmma_tf32_m64k8(acc, hi[kk], hopper::desc_sw128(b_lo + kk * 32, 16, 1024), kk > 0);
+      hopper::wgmma_tf32_m64k8(acc, hi[kk], hopper::desc_sw128(b_lo + kk * 32, 16, 1024), kk > 0 || chain);
       hopper::wgmma_tf32_m64k8(acc, lo[kk], hopper::desc_sw128(b_hi + kk * 32, 16, 1024));
       hopper::wgmma_tf32_m64k8(acc, hi[kk], hopper::desc_sw128(b_hi + kk * 32, 16, 1024));
     }
     hopper::wgmma_commit();
-    hopper::fence_regs(acc);
-    const int next = i + STAGES - 2;
+    const int next = i + AHEAD;
     if (next < nk) load_b(next % STAGES, kt0 + next);
     hopper::cp_async_commit();
-  }
-  hopper::wgmma_wait<0>();
-  hopper::fence_regs(acc);
-  if (nk > 0) {
+  };
+  for (int i = 0; i < nk; i += DW_CHAIN) {
+#pragma unroll
+    for (int c = 0; c < DW_CHAIN; c += 2) {
+      step(i + c, hi0, lo0, c > 0);
+      step(i + c + 1, hi1, lo1, true);
+    }
+    hopper::wgmma_wait<0>();  // the chain is whole: into the f32 sum
+    hopper::fence_regs(acc);
 #pragma unroll
     for (int j = 0; j < BN / 2; ++j) sum[j] += acc[j];
   }
@@ -1306,18 +1333,115 @@ conv3x3_dw_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ 
   store_tile<BN, false>(sum, rows, n0, o, static_cast<const float*>(nullptr), out, partial, splits);
 }
 
-// "generic" weight gradient (channels off the tf32x3 grid: the stem's Cin =
-// 6, the output convs' Cout of 2-6): CUDA cores in full float32. Each block
-// takes a BM_ x BN_ tile of (9 Cin, Cout) over its split of the pixels,
-// staging per 32-pixel slice the shifted x (zero at the padding) and dy in
-// shared memory. A thread gathers x for fixed rows (its tap's offset and
-// channel worked out once; neighbouring threads on neighbouring channels)
-// and holds TM rows (strided by the thread rows, so that the row reads are
-// conflict-free) x 8 columns of the sum.
-template <int BM_, int BN_>
+// "window" weight gradient: one side of the conv has at most 8 channels
+// (the output convs' Cout of 2-6, the stem's Cin of 6), so a thread can hold
+// the sums of a whole (tap, narrow channel) plane for one channel of the
+// other, "wide" side: 9 x NN f32 registers. CUDA cores in full float32. A
+// block is 32 wide channels (a thread each, neighbouring lanes on
+// neighbouring channels: 128-byte loads) x 8 columns (a warp each) of one
+// image, over a strip of rows; each thread walks down its column and keeps
+// the 3 x 3 window of the wide side around the pixel in registers, loading
+// the one new row of three a step (a row ahead), and the pixel's narrow
+// channels (one broadcast load each), and adds the window times them: 3 +
+// NN loads for 9 NN FFMA, each input byte read from HBM about once (the
+// neighbouring columns' loads meet in L1). (Four rows a step, their loads a
+// step ahead, ran 1.2x slower: 166 registers, one block per SM.) Bound by
+// FFMA and bytes alike at the output convs. The block's 8 columns are
+// summed in order through shared memory, and the blocks' partials by
+// conv3x3_dw_splitk_reduce.
+//   FLIP = false (Cout <= NN): wide = x (Cin), narrow = dy (Cout); window
+//   position (a, b), x at (h + a - 1, w + b - 1), is tap (a, b).
+//   FLIP = true (Cin <= NN): wide = dy (Cout), narrow = x (Cin), summed
+//   over the pixels q of x: dw[kh][kw][ci][co] = sum_q x[q][ci] dy[q + (1 -
+//   kh, 1 - kw)][co], so window position (a, b), dy at (h + a - 1, w + b -
+//   1), is tap (2 - a, 2 - b).
+constexpr int WIN_COLS = 8, WIN_CH = 32;
+
+template <int NN, bool FLIP>
+__global__ void __launch_bounds__(WIN_COLS * WIN_CH)
+conv3x3_dw_window_kernel(const float* __restrict__ wide, const float* __restrict__ narrow, float* __restrict__ out,
+                         float* __restrict__ partial, Shape s, int strips) {
+  __shared__ float red[9 * NN * WIN_CH];  // red[k * 32 + lane]: sum k = 9-window position x NN + narrow channel
+  const int cw = FLIP ? s.Cout : s.Cin, cn = FLIP ? s.Cin : s.Cout;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = blockIdx.x * WIN_CH + lane;
+  const int groups = (s.W + WIN_COLS - 1) / WIN_COLS;
+  const int g = blockIdx.y % groups, strip = blockIdx.y / groups % strips, b = blockIdx.y / groups / strips;
+  const int col = g * WIN_COLS + warp;
+  const int h0 = (int)((long long)strip * s.H / strips), h1 = (int)((long long)(strip + 1) * s.H / strips);
+  const size_t img = (size_t)b * s.H;
+  const bool c_ok = c < cw;
+  auto wide_at = [&](int hh, int ww) {
+    const bool ok = c_ok && (unsigned)hh < (unsigned)s.H && (unsigned)ww < (unsigned)s.W;
+    return ok ? __ldg(wide + ((img + hh) * s.W + ww) * cw + c) : 0.f;
+  };
+  auto narrow_at = [&](int hh, float (&n)[NN]) {
+    const float* p = narrow + ((img + hh) * s.W + col) * cn;
+#pragma unroll
+    for (int j = 0; j < NN; ++j) n[j] = hh < h1 && j < cn ? __ldg(p + j) : 0.f;
+  };
+  float acc[9 * NN];
+#pragma unroll
+  for (int k = 0; k < 9 * NN; ++k) acc[k] = 0.f;
+  if (col < s.W) {
+    float win[3][3], nxt[3], cur[NN], next[NN];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int bb = 0; bb < 3; ++bb) win[a][bb] = wide_at(h0 + a - 1, col + bb - 1);
+    narrow_at(h0, cur);
+    for (int h = h0; h < h1; ++h) {
+#pragma unroll
+      for (int bb = 0; bb < 3; ++bb) nxt[bb] = wide_at(h + 2, col + bb - 1);  // in flight under the products
+      narrow_at(h + 1, next);
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int bb = 0; bb < 3; ++bb)
+#pragma unroll
+          for (int j = 0; j < NN; ++j) acc[(3 * a + bb) * NN + j] = fmaf(win[a][bb], cur[j], acc[(3 * a + bb) * NN + j]);
+#pragma unroll
+      for (int bb = 0; bb < 3; ++bb) {
+        win[0][bb] = win[1][bb];
+        win[1][bb] = win[2][bb];
+        win[2][bb] = nxt[bb];
+      }
+#pragma unroll
+      for (int j = 0; j < NN; ++j) cur[j] = next[j];
+    }
+  }
+  for (int w = 0; w < WIN_COLS; ++w) {  // the columns in order
+    if (warp == w)
+#pragma unroll
+      for (int k = 0; k < 9 * NN; ++k) red[k * WIN_CH + lane] = (w == 0 ? 0.f : red[k * WIN_CH + lane]) + acc[k];
+    __syncthreads();
+  }
+  const int splits = gridDim.y;
+  for (int e = tid; e < 9 * NN * WIN_CH; e += WIN_COLS * WIN_CH) {
+    const int k = e / WIN_CH, ch = blockIdx.x * WIN_CH + e % WIN_CH, pos = k / NN, j = k % NN;
+    if (ch >= cw || j >= cn) continue;
+    const int tap_ = FLIP ? 8 - pos : pos;
+    const size_t idx = FLIP ? ((size_t)tap_ * s.Cin + j) * s.Cout + ch : ((size_t)tap_ * s.Cin + ch) * s.Cout + j;
+    if (splits > 1)
+      partial[(size_t)blockIdx.y * 9 * s.Cin * s.Cout + idx] = red[e];
+    else
+      out[idx] = red[e];
+  }
+}
+
+// "generic" weight gradient (channels off the tf32x3 grid and above 8 on
+// both sides, as Cout 20; x off its alignment): CUDA cores in full float32,
+// on 64 x 64 tiles. Each block takes a BM_ x BN_ tile of (9 Cin, Cout)
+// over its split of the pixels, staging per 32-pixel slice the shifted x
+// (zero at the padding) and dy in shared memory. A thread gathers x for
+// fixed rows (its tap's offset and channel worked out once; neighbouring
+// threads on neighbouring channels) and holds TM rows (strided by the
+// thread rows, so that the row reads are conflict-free) x 8 columns of the
+// sum.
 __global__ void __launch_bounds__(THREADS)
 conv3x3_dw_f32_kernel(const float* __restrict__ x, const float* __restrict__ dy, float* __restrict__ out,
                       float* __restrict__ partial, Shape s, int splits) {
+  constexpr int BM_ = BM, BN_ = BN;  // the generic forward's 64 x 64 tile
   constexpr int TX = BN_ / 8, TY = THREADS / TX, TM = BM_ / TY;
   constexpr int GR = BM_ >= THREADS ? BM_ / THREADS : 1;  // rows a thread gathers
   constexpr int GK = BM_ >= THREADS ? 1 : THREADS / BM_;  // threads per gathered row
@@ -1537,8 +1661,8 @@ void launch_split(const float* src, float* split, int rows, int K, int cout, int
 }
 
 // The weight gradient's "tf32x3" instances: BM = 128 rows of (9 Cin), BN
-// of Cout, a ring of 4 stages of dy's split slices.
-constexpr int DW_NWG = 2, DW_STAGES = 4;
+// of Cout, a ring of DW_STAGES stages of dy's split slices.
+constexpr int DW_NWG = 2, DW_STAGES = 5;
 
 __host__ __device__ constexpr size_t dw_tf32x3_smem_bytes(int bn, int stages) {
   return 1024 + (size_t)stages * 2 * bn * 128;
@@ -1551,8 +1675,8 @@ cudaError_t launch_dw_tf32x3(const float* x, const float* dy, float* dyt, float*
   static std::atomic<uint64_t> allowed{0};
   const cudaError_t attr = hopper::allow_dynamic_smem(kernel, 232448, allowed);
   if (attr != cudaSuccess) return attr;
-  if (s.Cin % F32_SLICE || s.Cout % BN || kp % F32_SLICE || kp < s.M || dyt == nullptr || splits < 1 ||
-      splits > kp / F32_SLICE || (splits > 1 && partial == nullptr))
+  if (s.Cin % F32_SLICE || s.Cout % BN || kp % (DW_CHAIN * F32_SLICE) || kp < s.M || dyt == nullptr || splits < 1 ||
+      splits > kp / (DW_CHAIN * F32_SLICE) || (splits > 1 && partial == nullptr))
     return cudaErrorInvalidValue;
   conv3x3_dw_split_dy<<<dim3(kp / 32, (s.Cout + 31) / 32), dim3(32, 8), 0, stream>>>(dy, dyt, s.M, kp, s.Cout);
   const dim3 grid((9 * s.Cin + DW_NWG * 64 - 1) / (DW_NWG * 64), s.Cout / BN, splits);
@@ -1560,12 +1684,33 @@ cudaError_t launch_dw_tf32x3(const float* x, const float* dy, float* dyt, float*
   return cudaSuccess;
 }
 
-template <int BM_, int BN_>
+// "window": NN narrow channels (2, 4, 6 or 8: the narrow side's count
+// rounded up to even); `splits` = B x strips x column groups blocks per 32
+// wide channels.
+template <int NN>
+cudaError_t launch_dw_window(const float* x, const float* dy, float* out, float* partial, const Shape& s, int splits,
+                             cudaStream_t stream) {
+  const bool flip = s.Cin < s.Cout;
+  const int cw = flip ? s.Cout : s.Cin, cn = flip ? s.Cin : s.Cout;
+  const int per_strip = s.B * ((s.W + WIN_COLS - 1) / WIN_COLS);
+  if (cn > NN || cn < NN - 1 || splits < per_strip || splits % per_strip || splits / per_strip > s.H ||
+      (splits > 1 && partial == nullptr))
+    return cudaErrorInvalidValue;
+  const dim3 grid((cw + WIN_CH - 1) / WIN_CH, splits);
+  if (flip)
+    conv3x3_dw_window_kernel<NN, true><<<grid, WIN_COLS * WIN_CH, 0, stream>>>(dy, x, out, partial, s,
+                                                                                splits / per_strip);
+  else
+    conv3x3_dw_window_kernel<NN, false><<<grid, WIN_COLS * WIN_CH, 0, stream>>>(x, dy, out, partial, s,
+                                                                                 splits / per_strip);
+  return cudaSuccess;
+}
+
 cudaError_t launch_dw_generic(const float* x, const float* dy, float* out, float* partial, const Shape& s, int splits,
                               cudaStream_t stream) {
   if (splits < 1 || splits > (s.M + BK - 1) / BK || (splits > 1 && partial == nullptr)) return cudaErrorInvalidValue;
-  const dim3 grid((9 * s.Cin + BM_ - 1) / BM_, (s.Cout + BN_ - 1) / BN_, splits);
-  conv3x3_dw_f32_kernel<BM_, BN_><<<grid, THREADS, 0, stream>>>(x, dy, out, partial, s, splits);
+  const dim3 grid((9 * s.Cin + 63) / 64, (s.Cout + 63) / 64, splits);
+  conv3x3_dw_f32_kernel<<<grid, THREADS, 0, stream>>>(x, dy, out, partial, s, splits);
   return cudaSuccess;
 }
 
@@ -1682,10 +1827,12 @@ extern "C" int conv3x3_tf32_split(const void* w, void* split, int Cin, int Cout,
 // gradient dy (B, H, W, Cout), both float32 and contiguous: out (3, 3, Cin,
 // Cout) float32. variant 5 = tf32x3 (Cin % 32 == 0, Cout % bn == 0, bn 32,
 // 64 or 128; dyt: (2, Cout, kp) float32 scratch for dy's split copy, kp =
-// B H W rounded up to a multiple of 32; x 8-byte aligned), 0 = generic (bn
-// 64, or 8 where Cout <= 8: tiles of 64 x 64 or 256 x 8; dyt, kp unused).
-// partial: f32 (splits, 9 Cin, Cout) when splits > 1, else unused. Returns
-// the cudaError_t of the launches (0 on success).
+// B H W rounded up to a multiple of 32 DW_CHAIN = 128; splits <= kp / 128;
+// x 8-byte aligned), 7 = window (min(Cin, Cout) <= 8, bn = that count
+// rounded up to even; splits a multiple of B x ceil(W / 8), at most H times
+// it), 0 = generic (bn 64: tiles of 64 x 64; dyt, kp unused). partial: f32
+// (splits, 9 Cin, Cout) when splits > 1, else unused. Returns the
+// cudaError_t of the launches (0 on success).
 extern "C" int conv3x3_dw(const void* x, const void* dy, void* dyt, void* out, void* partial, int B, int H, int W,
                           int Cin, int Cout, int variant, int bn, int splits, int kp, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -1708,10 +1855,16 @@ extern "C" int conv3x3_dw(const void* x, const void* dy, void* dyt, void* out, v
     err = launch_dw_tf32x3<64>(xf, dyf, dytf, outf, pf, s, kp, splits, st);
   else if (variant == 5 && bn == 32)
     err = launch_dw_tf32x3<32>(xf, dyf, dytf, outf, pf, s, kp, splits, st);
+  else if (variant == 7 && bn == 2)
+    err = launch_dw_window<2>(xf, dyf, outf, pf, s, splits, st);
+  else if (variant == 7 && bn == 4)
+    err = launch_dw_window<4>(xf, dyf, outf, pf, s, splits, st);
+  else if (variant == 7 && bn == 6)
+    err = launch_dw_window<6>(xf, dyf, outf, pf, s, splits, st);
+  else if (variant == 7 && bn == 8)
+    err = launch_dw_window<8>(xf, dyf, outf, pf, s, splits, st);
   else if (variant == 0 && bn == 64)
-    err = launch_dw_generic<64, 64>(xf, dyf, outf, pf, s, splits, st);
-  else if (variant == 0 && bn == 8 && Cout <= 8)
-    err = launch_dw_generic<256, 8>(xf, dyf, outf, pf, s, splits, st);
+    err = launch_dw_generic(xf, dyf, outf, pf, s, splits, st);
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;

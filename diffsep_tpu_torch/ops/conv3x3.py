@@ -69,9 +69,12 @@ the route of the input's type:
   DX_MAX_SLICES slices a split for float32 accuracy), "tf32x3" reading w'
   split by the split pass with its flip on every backward call, "generic"
   a flipped HWIO copy; none where x takes no gradient (the stem). dw runs
-  ``conv3x3_dw`` (csrc/conv3x3.cu) on ``plan_conv3x3_dw``'s plan: "tf32x3"
-  (Cin % 32 == 0, Cout % 32 == 0) on ``wgmma`` with split operands, else
-  "generic" on the CUDA cores, its pixels split over the SMs and the
+  ``conv3x3_dw`` (csrc/conv3x3.cu) on ``plan_conv3x3_dw``'s plan: "window"
+  where a side has 8 channels or fewer (the stem, the output convs) on the
+  CUDA cores, a thread's 3 x 3 window of the other side in registers;
+  "tf32x3" (Cin % 32 == 0, Cout % 32 == 0) on ``wgmma`` with split
+  operands, the groups of slices chained without a wait between them; else
+  "generic" on the CUDA cores; its pixels split over the SMs and the
   partials summed in a fixed order (bitwise deterministic).
 - bfloat16 on the card: ``aten.convolution_backward`` (cuDNN) on the NHWC
   tensors viewed as channels-last NCHW: at the recipe's shapes its dx and
@@ -106,10 +109,11 @@ Tensor = torch.Tensor
 
 __all__ = ["ConvPlan", "conv3x3", "conv3x3_dw", "conv3x3_dw_plain", "conv3x3_dx", "conv3x3_dx_plain",
            "conv3x3_plain", "plan_conv3x3", "plan_conv3x3_dw", "plan_conv3x3_dx", "tf32_round", "tf32_split_weight",
-           "tf32_split_weight_plain", "tf32x3_dw_emulated"]
+           "tf32_split_weight_plain", "tf32x3_dw_emulated", "window_dw_emulated"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_VARIANTS = {"generic": 0, "wgmma": 1, "narrow": 2, "tma": 3, "tma_narrow": 4, "tf32x3": 5, "slice32": 6}
+_VARIANTS = {"generic": 0, "wgmma": 1, "narrow": 2, "tma": 3, "tma_narrow": 4, "tf32x3": 5, "slice32": 6,
+             "window": 7}
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 _SPLIT_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _DW_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
@@ -133,15 +137,19 @@ PARTIAL_COST = 3e-4  # tf32x3: a split's partials per output element, in 128-row
 NARROW_WAVES = 4  # tf32x3's 64 x 8 blocks that a split plan keeps per SM
 # the weight gradient's (variant, bm, bn) instantiated in csrc/conv3x3.cu
 # (conv3x3_dw): "tf32x3" rows of (9 Cin) x Cout columns on a ring of
-# DW_STAGES stages, and "generic"'s two tiles; the blocks of each that the
-# card holds at once (one "tf32x3" block per SM, by its shared memory; four
-# of "generic"'s at the least); the waves of them a split plan may take;
-# the 32-pixel slices a split walks at the least
-DW_INSTANCES = (("tf32x3", 128, 128), ("tf32x3", 128, 64), ("tf32x3", 128, 32), ("generic", 64, 64),
-                ("generic", 256, 8))
-DW_STAGES = 4
+# DW_STAGES stages, "window"'s 32 wide channels x 2-8 narrow ones, and
+# "generic"'s 64 x 64 tile; the blocks of "tf32x3" and "generic" that the
+# card holds at once (one "tf32x3" block per SM, by its registers; four of
+# "generic"'s at the least); the waves of them a split plan may take; the
+# 32-pixel slices a split walks at the least; the blocks a "window" plan
+# aims at (two waves of two a SM), and the narrow side it takes at the most
+DW_INSTANCES = (("tf32x3", 128, 128), ("tf32x3", 128, 64), ("tf32x3", 128, 32), ("window", 32, 2),
+                ("window", 32, 4), ("window", 32, 6), ("window", 32, 8), ("generic", 64, 64))
+DW_STAGES = 5
 DW_RESIDENT = {"tf32x3": SMS, "generic": 4 * SMS}
 DW_WAVES, DW_MIN_SLICES = 2, 8
+DW_CHAIN = 4  # "tf32x3" slices whose wgmma chain a thread adds into its f32 sum at once
+WINDOW_BLOCKS, WINDOW_NARROW, WINDOW_COLS, WINDOW_CH = 4 * SMS, 8, 8, 32
 # the 32-channel slices a "tf32x3" dx split walks at the most: the tensor
 # cores' f32 accumulation does not round to nearest, and its error grows
 # with the walk (unsplit over the 72 slices of a Cout 256 conv, dx's error
@@ -377,25 +385,41 @@ def _dw_splits(tiles: int, k_tiles: int, resident: int) -> int:
     return min(range(1, most + 1), key=lambda s: (-(-tiles * s // resident) * -(-k_tiles // s), s))
 
 
+def _window(b: int, h: int, w: int, cin: int, cout: int) -> ConvPlan:
+    """The "window" plan: blocks of WINDOW_CH wide channels (the side of more
+    channels) x WINDOW_COLS columns of one image, over strips of rows: as
+    few strips as give WINDOW_BLOCKS blocks, at most one a row. ``bn`` is
+    the narrow side's count rounded up to even; ``splits``, the blocks per
+    WINDOW_CH wide channels, each writing a partial."""
+    chunks, per_strip = -(-max(cin, cout) // WINDOW_CH), b * -(-w // WINDOW_COLS)
+    strips = min(h, max(1, -(-WINDOW_BLOCKS // (chunks * per_strip))))
+    narrow = min(cin, cout)
+    splits = per_strip * strips
+    return ConvPlan("window", WINDOW_CH, narrow + narrow % 2, 1, splits, (chunks, 1, splits), 0)
+
+
 @functools.lru_cache(maxsize=1024)
 def plan_conv3x3_dw(b: int, h: int, w: int, cin: int, cout: int, aligned: bool = True) -> ConvPlan:
     """The plan of ``conv3x3_dw`` for float32 x (b, h, w, cin) and dy (b, h,
-    w, cout): a GEMM of 9 cin rows x cout columns over b h w pixels, walked
-    in 32-pixel slices. "tf32x3" where Cin % 32 == 0 and Cout % 32 == 0,
-    on 128-row tiles 128, 64 or 32 columns wide (the widest that divides
-    Cout); else "generic" on 64 x 64 tiles, or 256 x 8 where Cout <= 8
-    (the output convs). The pixels split over ``_dw_splits``, within
-    DW_WAVES waves of the blocks the card holds at once (DW_RESIDENT). The
-    partials (splits, 9 cin, cout) therefore take at most DW_WAVES x
-    DW_RESIDENT x bm x bn floats. Not ``aligned`` (x off 16 bytes):
-    "generic"."""
+    w, cout): a GEMM of 9 cin rows x cout columns over b h w pixels.
+    "window" where one side has WINDOW_NARROW channels or fewer (the stem,
+    the output convs; ``_window``). Else "tf32x3" where Cin % 32 == 0 and
+    Cout % 32 == 0, on 128-row tiles 128, 64 or 32 columns wide (the widest
+    that divides Cout), walked in chains of DW_CHAIN 32-pixel slices; else
+    "generic" on 64 x 64 tiles, walked in 32-pixel slices. Their pixels
+    split over ``_dw_splits``, within DW_WAVES waves of the blocks the card
+    holds at once (DW_RESIDENT); their partials (splits, 9 cin, cout)
+    therefore take at most DW_WAVES x DW_RESIDENT x bm x bn floats. Not
+    ``aligned`` (x off 16 bytes): "generic" for "tf32x3"."""
+    if min(cin, cout) <= WINDOW_NARROW:
+        return _window(b, h, w, cin, cout)
     rows, k_tiles = 9 * cin, -(-b * h * w // F32_SLICE)
     if cin % F32_SLICE == 0 and cout % 32 == 0 and aligned:
         variant, bm, bn = "tf32x3", 128, next(n for n in (128, 64, 32) if cout % n == 0)
         smem = 1024 + DW_STAGES * 2 * bn * 128  # dw_tf32x3_smem_bytes in csrc/conv3x3.cu
+        k_tiles = DW_CHAIN * -(-b * h * w // (DW_CHAIN * F32_SLICE))  # it walks whole chains of slices
     else:
-        variant, (bm, bn) = "generic", ((256, 8) if cout <= 8 else (64, 64))
-        smem = 0
+        variant, bm, bn, smem = "generic", 64, 64, 0
     grid = (-(-rows // bm), -(-cout // bn))
     splits = _dw_splits(grid[0] * grid[1], k_tiles, DW_RESIDENT[variant])
     return ConvPlan(variant, bm, bn, DW_STAGES if variant == "tf32x3" else 1, splits, grid + (splits,), smem)
@@ -485,10 +509,16 @@ def tf32_split_weight(weight: Tensor, flip: bool = False) -> Tensor:
     return split
 
 
-def tf32x3_dw_emulated(x: Tensor, dy: Tensor) -> Tensor:
+def tf32x3_dw_emulated(x: Tensor, dy: Tensor, splits: Optional[int] = None) -> Tensor:
     """The "tf32x3" weight gradient's arithmetic in float64: each of x's
     shifted views and dy split into hi = tf32(v) and lo = tf32(v - hi),
-    and hi.hi + hi.lo + lo.hi summed exactly (the kernel sums in f32)."""
+    and hi.hi + hi.lo + lo.hi summed exactly (the kernel sums in f32).
+    With ``splits``, the kernel's order of summation instead: the pixels in
+    chains of DW_CHAIN 32-pixel slices split into ``splits`` walks; each
+    chain's products summed exactly and rounded once to float32 (the wgmma
+    chain's sum, whose own rounding this leaves out), the chains of a walk
+    added in turn into a float32 sum, and the walks' partials added in
+    order in float32 (conv3x3_dw_splitk_reduce)."""
     cin, cout = x.shape[3], dy.shape[3]
 
     def split(v):
@@ -497,11 +527,64 @@ def tf32x3_dw_emulated(x: Tensor, dy: Tensor) -> Tensor:
         return hi.double(), tf32_round(v - hi).double()
 
     b_hi, b_lo = split(dy)
-    taps = []
-    for view in _shifted(x):
-        a_hi, a_lo = split(view)
-        taps.append(a_hi.T @ b_hi + a_hi.T @ b_lo + a_lo.T @ b_hi)
-    return torch.stack(taps).reshape(3, 3, cin, cout)
+    if splits is None:
+        taps = []
+        for view in _shifted(x):
+            a_hi, a_lo = split(view)
+            taps.append(a_hi.T @ b_hi + a_hi.T @ b_lo + a_lo.T @ b_hi)
+        return torch.stack(taps).reshape(3, 3, cin, cout)
+    chains = -(-b_hi.shape[0] // (DW_CHAIN * F32_SLICE))
+    k_tiles = DW_CHAIN * chains
+
+    def slices(v):  # (k_tiles, 32, C), zero past the last pixel
+        return F.pad(v, (0, 0, 0, k_tiles * F32_SLICE - v.shape[0])).reshape(k_tiles, F32_SLICE, -1)
+
+    b_hi, b_lo = slices(b_hi), slices(b_lo)
+    prods = torch.stack([torch.einsum("spc,spo->sco", a_hi, b_hi + b_lo) + torch.einsum("spc,spo->sco", a_lo, b_hi)
+                         for a_hi, a_lo in ((slices(a) for a in split(view)) for view in _shifted(x))], 1)
+    out = torch.zeros((9, cin, cout), dtype=torch.float32, device=x.device)
+    for z in range(splits):
+        first, end = DW_CHAIN * (z * chains // splits), DW_CHAIN * ((z + 1) * chains // splits)
+        walk = torch.zeros_like(out)
+        for i in range(first, end, DW_CHAIN):
+            walk = walk + prods[i:min(i + DW_CHAIN, end)].sum(0).float()
+        out = out + walk
+    return out.reshape(3, 3, cin, cout)
+
+
+def window_dw_emulated(x: Tensor, dy: Tensor, strips: int, dtype: torch.dtype = torch.float64) -> Tensor:
+    """The "window" weight gradient's arithmetic in ``dtype``, in the
+    kernel's layout and order (csrc/conv3x3.cu, conv3x3_dw_window_kernel):
+    the wide side (x, or dy where Cin < Cout) read through a 3 x 3 window
+    that walks down each column over ``strips`` strips of rows, times the
+    narrow side at the pixel, added row by row; a block's WINDOW_COLS
+    columns summed in order, then the blocks' partials in blockIdx.y order
+    (image, strip, column group); window position (a, b) is tap (a, b), or
+    (2 - a, 2 - b) where the sides are swapped."""
+    b, h, w, cin = x.shape
+    cout = dy.shape[3]
+    flip = cin < cout
+    wide, narrow = (dy, x) if flip else (x, dy)
+    cw, cn = wide.shape[3], narrow.shape[3]
+    groups = -(-w // WINDOW_COLS)
+    cols = groups * WINDOW_COLS
+    wp = F.pad(wide.to(dtype), (0, 0, 1, 1 + cols - w, 1, 1))  # the window's halo, zero
+    nar = F.pad(narrow.to(dtype), (0, 0, 0, cols - w))
+    acc = torch.zeros((b, strips, cols, 9, cw, cn), dtype=dtype, device=x.device)
+    for s in range(strips):
+        for row in range(s * h // strips, (s + 1) * h // strips):
+            win = torch.stack([wp[:, row + a, bb:bb + cols] for a in range(3) for bb in range(3)], 2)
+            acc[:, s] += win[..., None] * nar[:, row, :, None, None, :]
+    acc = acc.reshape(b * strips * groups, WINDOW_COLS, 9, cw, cn)
+    blocks = acc[:, 0]
+    for col in range(1, WINDOW_COLS):
+        blocks = blocks + acc[:, col]
+    out = torch.zeros_like(blocks[0])
+    for part in blocks:
+        out = out + part
+    if flip:  # (pos, co, ci) -> taps reversed, (ci, co)
+        return out.flip(0).permute(0, 2, 1).reshape(3, 3, cin, cout)
+    return out.reshape(3, 3, cin, cout)
 
 
 # id(weight) -> (a weak reference to it, its version, its split weight)
@@ -626,7 +709,7 @@ def _launch_dw(x: Tensor, dy: Tensor, out: Tensor, plan: ConvPlan) -> Tensor:
     ``conv3x3_dw`` accepted."""
     b, h, w, cin = x.shape
     cout = dy.shape[3]
-    kp = -(-b * h * w // F32_SLICE) * F32_SLICE
+    kp = -(-b * h * w // (DW_CHAIN * F32_SLICE)) * DW_CHAIN * F32_SLICE  # "tf32x3" walks whole chains of slices
     dyt = torch.empty((2, cout, kp), dtype=torch.float32, device=x.device) if plan.variant == "tf32x3" else None
     partial = torch.empty((plan.splits, 9 * cin, cout), dtype=torch.float32, device=x.device) \
         if plan.splits > 1 else None

@@ -53,7 +53,10 @@ products). The inputs, the cuDNN calls and the bounds are
 chip_smoke.conv_bwd_case's, as phase 12 holds them. In bfloat16 each runs the hand forward
 kernel on dy with the flipped weight (the dx a bf16 hand backward would
 take; the port's bf16 backward is cuDNN's) against cuDNN's bf16 dx and
-dw. Every time is also summed over the micro-step's launches.
+dw. Every time is also summed over the micro-step's launches, and in
+float32 the dw per plan group (chip_smoke.bwd_group: "tf32x3", the
+"window" output convs, the "window" stem) beside cuDNN's deterministic,
+TF32-off dw and the bound on the same shapes.
 """
 from __future__ import annotations
 
@@ -71,7 +74,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (FS, HBM_BYTES_PER_S, PEAK_FLOPS, SERVE_BATCH, SERVE_SECONDS,  # noqa: E402
-                        conv_bwd_case, sleep_cycles_per_ms, time_ms)
+                        bwd_group, conv_bwd_case, sleep_cycles_per_ms, time_ms)
 
 
 F32_EXTRA = [((2, 16, 20, 768), 256), ((2, 32, 40, 768), 256)]  # set C's cat inputs
@@ -215,6 +218,7 @@ def backward_main(args, card, dev) -> int:
             dx_fn, dw_fn = (lambda: conv.conv3x3_dx(dy, wt)), (lambda: conv.conv3x3_dw(x, dy))
             want_dx, want_dw = conv.conv3x3_dx_plain(dy, wt), conv.conv3x3_dw_plain(x, dy)
             row.update(plan_dw=case.plans["dw"].variant,
+                       group_dw=bwd_group(dict(plan=dict(variant=case.plans["dw"].variant), shape=shape, cout=cout)),
                        err_dw=((dw_fn() - want_dw).abs().max() / want_dw.abs().max()).item())
         else:
             wflip = conv.conv3x3_dx_weight(wt)
@@ -243,9 +247,20 @@ def backward_main(args, card, dev) -> int:
     print(f"per micro-step at batch {BACKWARD_BATCH} ({sum(r['launches_dx'] for r in rows)} dx, "
           f"{sum(r['launches_dw'] for r in rows)} dw; {card}): "
           + ", ".join(f"{k} {v:.3f}" for k, v in totals.items()), flush=True)
+    groups = {}  # dw per plan group, beside cuDNN's deterministic, TF32-off dw on the same shapes
+    for r in rows if f32 else []:
+        g = groups.setdefault(r["group_dw"], dict(launches=0, hand_dw_ms=0.0, cudnn_dw_ms=0.0, bound_dw_ms=0.0))
+        g["launches"] += r["launches_dw"]
+        for key, src in (("hand_dw_ms", "hand_dw_ms"), ("cudnn_dw_ms", "cudnn deterministic, TF32 off dw_ms"),
+                         ("bound_dw_ms", "bound_dw_ms")):
+            g[key] += r[src] * r["launches_dw"]
+    for name, g in sorted(groups.items()):
+        print(f"dw {name} x{g['launches']}: hand {g['hand_dw_ms']:.3f} ms, cuDNN deterministic TF32 off "
+              f"{g['cudnn_dw_ms']:.3f}, bound {g['bound_dw_ms']:.3f} ({card})", flush=True)
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
-        args.report.write_text(json.dumps(dict(card=card, rows=rows, per_micro_step=totals), indent=1))
+        args.report.write_text(json.dumps(dict(card=card, rows=rows, per_micro_step=totals, dw_by_group=groups),
+                                          indent=1))
     return 0
 
 

@@ -251,17 +251,21 @@ def test_conv3x3_unaligned_f32_input_takes_the_generic_kernel(dev):
 
 # The float32 conv's backward on the card: dx on the forward's kernels
 # (the flipped, transposed weight), dw on conv3x3_dw. Shapes: batch 2 on 4 x
-# 5, 7 x 6 and 16 x 20 at (Cin, Cout) = (6, 32) (the stem's generic dw),
-# (32, 64), (64, 32), (96, 4) (a generic dx of Cin 4 and a 256 x 8 generic
-# dw) and (128, 128); every conv shape of the f32 + remat micro-step (the
-# flagship at batch 6); and ragged ones: odd H and W with Cin = 160, Cout =
-# 20, the output conv past both edges, Cout = 96 on 32-wide tiles.
-# Tolerance 2e-5 of max |plain| (cuDNN and cuBLAS with TF32 off): both sum
-# the same f32 terms in other orders, dw over up to 491520 pixels.
+# 5, 7 x 6 and 16 x 20 at (Cin, Cout) = (6, 32) (the stem's "window" dw,
+# its sides swapped), (32, 64), (64, 32), (96, 4) (a generic dx of Cin 4 and
+# a "window" dw of 4 narrow channels) and (128, 128); every conv shape of
+# the f32 + remat micro-step (the flagship at batch 6); and ragged ones: odd
+# H and W with Cin = 160, Cout = 20 (the generic dw), the output conv past
+# both edges, Cout = 96 on 32-wide tiles, a "window" dw over two blocks of
+# wide channels with one channel in the second and 8 narrow ones (33 -> 8,
+# 21 columns), both sides narrow (7 -> 7), an odd narrow side swapped (3 ->
+# 40). Tolerance 2e-5 of max |plain| (cuDNN and cuBLAS with TF32 off): both
+# sum the same f32 terms in other orders, dw over up to 491520 pixels.
 BWD_SHAPES = ([(2, h, w, ci, co) for h, w in ((4, 5), (7, 6), (16, 20))
                for ci, co in ((6, 32), (32, 64), (64, 32), (96, 4), (128, 128))]
               + [(6, *s[1:]) for s in F32_TRUNK[:-2] + F32_OUTPUT] + [(6, 256, 320, 6, 128)]
-              + [(3, 17, 19, 160, 128), (1, 9, 7, 64, 20), (1, 130, 131, 128, 6), (2, 33, 41, 32, 96)])
+              + [(3, 17, 19, 160, 128), (1, 9, 7, 64, 20), (1, 130, 131, 128, 6), (2, 33, 41, 32, 96),
+                 (2, 16, 21, 33, 8), (3, 5, 9, 7, 7), (2, 7, 6, 3, 40)])
 BWD_TOL = 2e-5
 
 
@@ -283,7 +287,8 @@ def test_conv3x3_dx_and_dw_match_plain(dev, shape):
 
 
 @pytest.mark.parametrize("shape", [(6, 256, 320, 128, 128), (6, 64, 80, 512, 256), (2, 16, 20, 6, 32),
-                                   (6, 128, 160, 128, 6), (2, 33, 41, 32, 96)])
+                                   (6, 128, 160, 128, 6), (2, 33, 41, 32, 96), (6, 256, 320, 6, 128),
+                                   (2, 7, 6, 3, 40)])
 def test_conv3x3_dw_is_bitwise_deterministic(dev, shape):
     x, _, _ = _conv_inputs(dev, torch.float32, shape)
     g = torch.randn((*shape[:3], shape[4]), device=dev)
@@ -315,6 +320,24 @@ def test_conv3x3_backward_of_unaligned_tensors_takes_the_generic_kernels(dev):
     assert conv3x3.plan_conv3x3_dw(1, 16, 20, 128, 128, False).variant == "generic"
     _close_rel(conv3x3.conv3x3_dw(xs, g), conv3x3.conv3x3_dw_plain(x, g))
     _close_rel(conv3x3.conv3x3_dx(gs, k), conv3x3.conv3x3_dx_plain(g, k))
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 20, 128, 6), (2, 16, 20, 6, 128)])
+def test_conv3x3_dw_window_of_unaligned_tensors_matches_plain(dev, shape):
+    """x and dy 4 bytes off the 16-byte alignment: the "window" dw (an
+    output conv's sides and the stem's) reads single floats, so it takes
+    them as they are."""
+    x, _, _ = _conv_inputs(dev, torch.float32, shape)
+    g = torch.randn((*shape[:3], shape[4]), device=dev)
+
+    def shifted(t):
+        out = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape)
+        return out.copy_(t)
+
+    xs, gs = shifted(x), shifted(g)
+    assert xs.data_ptr() % 16 and gs.data_ptr() % 16
+    assert conv3x3.plan_conv3x3_dw(*shape, False).variant == "window"
+    _close_rel(conv3x3.conv3x3_dw(xs, gs), conv3x3.conv3x3_dw_plain(x, g))
 
 
 def test_f32_score_model_gradients_on_the_hand_backward_match_plain(dev):
